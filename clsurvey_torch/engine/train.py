@@ -1,0 +1,549 @@
+"""The training engine: ONE train step for every CL method.
+
+Counterpart of ``clsurvey_tpu/engine/train.py`` (resident path). The
+reference implements eleven separate epoch loops with custom SGD subclasses
+that inject each method's regularizer into ``optimizer.step``
+(ref:SURVEY §2.3). Here there is a single engine:
+
+- the epoch is a Python loop over batches; the task's uint8 dataset, the
+  weights, momentum and method state stay on the device for the whole task,
+  and per-batch metrics are read back once per epoch;
+- each batch is gathered on the device, then normalized and flipped by
+  ``ops/preprocess.py`` (kernel A on the card);
+- method mechanics plug in via ``UpdateRule`` hooks (``methods/base.py``)
+  evaluated inside the same step, in the reference's "regularizer inside
+  optimizer.step" order: CE-grads (+ extra loss terms) -> + penalty grads ->
+  transform -> + weight decay -> freeze -> momentum -> masked update
+  (ref:src/methods/EWC/train_EWC.py:23-86);
+- the SGD hyper-behavior matches the reference's shared protocol: momentum
+  0.9, lr x0.1 after 5 non-improving val epochs, early stop after 10
+  (ref:src/methods/Finetune/train_SGD.py:10-30), best-val model checkpointing
+  and epoch-granular resume (ref:src/methods/Finetune/train_SGD.py:41-189).
+
+The train state is a value, as in the JAX package: ``trainable`` holds the
+backbone's parameters by their module names (torch layout) plus the head
+bank, and the backbone module is run on them with
+``torch.func.functional_call``. Checkpoints are written in the JAX
+package's layout (``models/convert.py``). The momentum buffers are updated
+in place (the step returns the same tensors), which saves one copy of the
+weights per step; the weights themselves are replaced, so ``post_step``
+still sees the pre-step values.
+
+Host-streamed (chunked) epochs for splits above the device data budget are
+not ported yet: such a split raises."""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from clsurvey_torch.methods.base import UpdateRule
+from clsurvey_torch.models import heads as heads_lib
+from clsurvey_torch.models.convert import params_from_jax, params_to_jax
+from clsurvey_torch.models.registry import ModelSpec
+from clsurvey_torch.ops import preprocess as pp
+from clsurvey_torch.utils import device as device_lib
+from clsurvey_torch.utils import io, rng as rng_lib, timing
+from clsurvey_torch.utils.paths import (
+    BEST_MODEL_FILENAME, EPOCH_CKPT_FILENAME)
+
+# Epochs ending above this train loss are treated as divergence (like NaN):
+# healthy losses are O(ln n_classes + reg terms), while a finite-but-
+# exploded epoch is the step before the NaN and must never be recorded as a
+# best model. CLSURVEY_DIVERGENCE_BOUND=inf restores a NaN-only abort.
+DIVERGENCE_LOSS_BOUND = float(
+    os.environ.get("CLSURVEY_DIVERGENCE_BOUND", "1e6"))
+
+
+# ---------------------------------------------------------------------------
+# trees: nested dicts of tensors
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable, *trees):
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves: list):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_to_device(tree, device):
+    return tree_map(lambda x: torch.as_tensor(x).to(device), tree)
+
+
+# ---------------------------------------------------------------------------
+# state and context
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainState:
+    trainable: Any      # {'params': {name: tensor}, 'heads': {'kernel','bias'}}
+    batch_stats: Any
+    momentum: Any       # like trainable
+    mstate: Any         # method state (hyper scalars + importance tensors...)
+
+
+@dataclass
+class EngineContext:
+    """Static description of one task-training problem."""
+
+    spec: ModelSpec
+    backbone: torch.nn.Module
+    task: int                     # 0-based head index of the current task
+    n_tasks: int                  # heads active (incl. current)
+    class_counts: np.ndarray      # (max_tasks,) real class counts
+    mean: tuple
+    std: tuple
+    update_rule: UpdateRule
+    device: torch.device
+    augment: bool = True
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    freeze_backbone: bool = False  # head-only training (LwF warmup,
+    # ref:src/methods/Finetune/main_SGD.py:72 freeze_mode)
+    # L1 weight decay: decay term wd*sign(theta) instead of wd*theta
+    # (MAS extra, ref:src/methods/MAS/train_MAS.py:72-76 L1_decay flag)
+    l1_decay: bool = False
+
+    def bank(self, trainable: Any) -> dict:
+        return {"kernel": trainable["heads"]["kernel"],
+                "bias": trainable["heads"]["bias"],
+                "class_counts": self.class_counts}
+
+    def forward_feats(self, params, batch_stats, x, train: bool):
+        return functional_call(self.backbone, params, (x,)), batch_stats
+
+    def task_logits(self, trainable, feats):
+        return heads_lib.forward(self.bank(trainable), feats, self.task)
+
+    def preprocess(self, images_u8, flip_mask=None):
+        """Train-time preprocess in the compute dtype; ``flip_mask`` is
+        ignored unless the context augments."""
+        return pp.preprocess(images_u8, self.mean, self.std,
+                             flip_mask if self.augment else None,
+                             dtype=self.spec.compute_dtype)
+
+
+def make_context(spec: ModelSpec, task: int, n_tasks: int,
+                 class_counts, mean, std, update_rule: UpdateRule,
+                 device="cuda", **kwargs) -> EngineContext:
+    device = device_lib.resolve(device)
+    return EngineContext(
+        spec=spec, backbone=spec.make_backbone().to(device), task=task,
+        n_tasks=n_tasks, class_counts=np.asarray(class_counts, np.int32),
+        mean=tuple(mean), std=tuple(std), update_rule=update_rule,
+        device=device, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+class Engine:
+    """Train step, epoch and eval for one EngineContext. Reusable across
+    attempts: hyperparameters live in the method state."""
+
+    def __init__(self, ctx: EngineContext):
+        self.ctx = ctx
+
+    def _base_loss_and_grads(self, trainable, batch_stats, batch, mstate):
+        ctx = self.ctx
+        x, y = batch
+        feats, new_bs = ctx.forward_feats(trainable["params"], batch_stats,
+                                          x, True)
+        logits = ctx.task_logits(trainable, feats)
+        ce = F.cross_entropy(logits, y)
+        extra = ctx.update_rule.extra_loss(ctx, trainable, feats, batch,
+                                           mstate, batch_stats=batch_stats)
+        loss = ce + extra
+        grads = torch.autograd.grad(loss, tree_leaves(trainable))
+        with torch.no_grad():
+            acc = (logits.argmax(-1) == y).to(torch.float32).mean()
+        return (loss.detach(), tree_unflatten(trainable, list(grads)),
+                new_bs, {"loss": ce.detach(), "acc": acc})
+
+    def _train_step(self, state: TrainState, x_u8, y, lr: float,
+                    flip_mask=None):
+        ctx = self.ctx
+        rule = ctx.update_rule
+        x = ctx.preprocess(x_u8, flip_mask)
+        batch = (x, y)
+
+        loss, grads, new_bs, metrics = self._base_loss_and_grads(
+            state.trainable, state.batch_stats, batch, state.mstate)
+
+        with torch.no_grad():
+            raw_grads = grads
+            penalty = rule.penalty_grads(state.trainable, state.mstate)
+            if penalty is not None:
+                grads = tree_map(torch.add, grads, penalty)
+            grads = rule.transform_grads(ctx, grads, state.trainable,
+                                         state.mstate)
+            wd = ctx.weight_decay
+            if wd:
+                if ctx.l1_decay:
+                    grads = tree_map(lambda g, p: g + wd * torch.sign(p),
+                                     grads, state.trainable)
+                else:
+                    grads = tree_map(lambda g, p: g + wd * p, grads,
+                                     state.trainable)
+            # freeze AFTER weight decay: the reference's freeze_mode
+            # optimizes only the classifier (ref:main_SGD.py:69-72), so
+            # frozen backbone weights must not decay either
+            if ctx.freeze_backbone:
+                grads = {**grads,
+                         "params": tree_zeros_like(grads["params"])}
+            # torch-SGD momentum, in place: buf = m*buf + d_p ; update = buf
+            # (multi-tensor ops: a few launches for all leaves, not a few
+            # per leaf)
+            bufs = tree_leaves(state.momentum)
+            torch._foreach_mul_(bufs, ctx.momentum)
+            torch._foreach_add_(bufs, tree_leaves(grads))
+            new_momentum = state.momentum
+            updates = tree_leaves(rule.mask_updates(ctx, new_momentum,
+                                                    state.mstate))
+            new_leaves = torch._foreach_sub(
+                tree_leaves(state.trainable), torch._foreach_mul(updates, lr))
+            for leaf in new_leaves:
+                leaf.requires_grad_()
+            new_trainable = tree_unflatten(state.trainable, new_leaves)
+            new_mstate = rule.post_step(ctx, state.mstate, state.trainable,
+                                        new_trainable, raw_grads, batch,
+                                        raw_images=x_u8)
+        return TrainState(new_trainable, new_bs, new_momentum,
+                          new_mstate), metrics
+
+    def train_epoch(self, state: TrainState, images, labels, perm,
+                    gen: torch.Generator | None, lr: float,
+                    batch_size: int):
+        """One epoch over ``perm`` (truncated to whole batches). ``gen``
+        draws the per-sample flip masks on the device (unused without
+        augmentation). Metrics are means of the per-batch CE and
+        accuracy."""
+        ctx = self.ctx
+        n = int(perm.shape[0])
+        batch_size = min(int(batch_size), n)
+        steps = n // batch_size
+        if steps == 0:
+            raise ValueError("an empty permutation cannot fill one batch")
+        perm = torch.as_tensor(perm)[: steps * batch_size].to(ctx.device)
+        losses, accs = [], []
+        for i in range(steps):
+            idx = perm[i * batch_size: (i + 1) * batch_size]
+            x = images.index_select(0, idx)
+            y = labels.index_select(0, idx)
+            flip = (torch.randint(0, 2, (batch_size,), dtype=torch.uint8,
+                                  device=ctx.device, generator=gen)
+                    if ctx.augment else None)
+            state, metrics = self._train_step(state, x, y, lr, flip)
+            losses.append(metrics["loss"])
+            accs.append(metrics["acc"])
+        return state, {"loss": torch.stack(losses).mean(),
+                       "acc": torch.stack(accs).mean()}
+
+    def evaluate(self, trainable, batch_stats, images, labels,
+                 batch_size: int):
+        """Current-task accuracy + per-class counters
+        (ref:src/framework/inference.py:8-87 test_model semantics). Eval
+        preprocess is float32 with no flip, whatever the compute dtype."""
+        ctx = self.ctx
+        n = int(images.shape[0])
+        batch_size = min(int(batch_size), n)
+        y_all = torch.as_tensor(labels).to(ctx.device).long()
+        n_classes = int(np.max(ctx.class_counts))
+        pcc = torch.zeros(n_classes, device=ctx.device)
+        pct = torch.zeros(n_classes, device=ctx.device)
+        with torch.no_grad():
+            for lo in range(0, n, batch_size):
+                x = pp.preprocess(images[lo: lo + batch_size], ctx.mean,
+                                  ctx.std)
+                y = y_all[lo: lo + batch_size]
+                feats, _ = ctx.forward_feats(trainable["params"],
+                                             batch_stats, x, False)
+                logits = ctx.task_logits(trainable, feats)
+                hit = (logits.argmax(-1) == y).to(torch.float32)
+                pcc.index_add_(0, y, hit)
+                pct.index_add_(0, y, torch.ones_like(hit))
+        per_class_c, per_class_t = pcc.cpu().numpy(), pct.cpu().numpy()
+        acc = float(per_class_c.sum()) / max(float(per_class_t.sum()), 1.0)
+        return acc, per_class_c, per_class_t
+
+
+# ---------------------------------------------------------------------------
+# Host-side task-training controller
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainJob:
+    exp_dir: str
+    num_epochs: int = 70
+    batch_size: int = 200
+    lr: float = 5e-3
+    saving_freq: int = 5            # ref:train_SGD.py saving_freq
+    decay_threshold: int = 5        # lr x0.1 when count == 5
+    early_stop_threshold: int = 10  # stop when count > 10
+    resume: bool = True
+    save_models_mode: bool = True
+    seed: int = 7
+    eval_batch_size: int = 0        # 0 -> use batch_size
+
+    def __post_init__(self):
+        if self.eval_batch_size == 0:
+            self.eval_batch_size = self.batch_size
+
+
+def trainable_to_host(trainable: dict) -> dict:
+    """Trainable tree (or a tree shaped like it, e.g. momentum) -> the JAX
+    package's layout, numpy."""
+    return {"params": params_to_jax(trainable["params"]),
+            "heads": io.to_host(trainable["heads"])}
+
+
+def trainable_from_host(tree: dict, device, requires_grad: bool) -> dict:
+    """JAX-layout trainable tree -> tensors on ``device``."""
+    out = {"params": params_from_jax(tree["params"], device),
+           "heads": {k: torch.tensor(np.asarray(tree["heads"][k],
+                                                np.float32), device=device)
+                     for k in ("kernel", "bias")}}
+    if requires_grad:
+        for t in tree_leaves(out):
+            t.requires_grad_()
+    return out
+
+
+def model_state_dict(ctx: EngineContext, state: TrainState,
+                     meta: dict | None = None,
+                     include_aux: bool = True) -> dict:
+    """The canonical on-disk model format ({'params','batch_stats','heads',
+    'meta'[,'method_aux']}) in the JAX package's layout — the inter-task /
+    eval interchange artifact, replacing the reference's whole-module
+    pickles (which carry ``model.reg_params`` along, hence ``method_aux``).
+    ``include_aux=False`` skips the method-aux export (the aux-heavy
+    rehearsal rules attach it once per attempt instead)."""
+    host = trainable_to_host(state.trainable)
+    out = {
+        "params": host["params"],
+        "batch_stats": io.to_host(state.batch_stats),
+        "heads": {**host["heads"],
+                  "class_counts": np.asarray(ctx.class_counts)},
+        "meta": dict(meta or {}),
+    }
+    if include_aux:
+        aux = ctx.update_rule.export_aux(state.mstate)
+        if aux is not None:
+            out["method_aux"] = io.to_host(aux)
+    return out
+
+
+def state_from_model(model: dict, mstate: Any, device) -> TrainState:
+    """Build a fresh TrainState (zero momentum) on ``device`` from a
+    model-state dict."""
+    trainable = trainable_from_host(model, device, requires_grad=True)
+    batch_stats = tree_to_device(model.get("batch_stats", {}), device)
+    return TrainState(trainable, batch_stats, tree_zeros_like(trainable),
+                      mstate)
+
+
+def data_budget_bytes() -> int:
+    """Device budget for resident split data (CLSURVEY_DATA_BUDGET_MB,
+    default 2048). Splits above it would stream in chunks, which this
+    port does not do yet."""
+    return int(os.environ.get("CLSURVEY_DATA_BUDGET_MB", "2048")) * 2 ** 20
+
+
+def _resident(split_np: np.ndarray, what: str, device) -> torch.Tensor:
+    budget = data_budget_bytes()
+    if split_np.nbytes > budget:
+        raise NotImplementedError(
+            f"{what} split of {split_np.nbytes / 2**20:.0f} MiB is above "
+            f"the device data budget of {budget / 2**20:.0f} MiB; streamed "
+            f"epochs are not ported to clsurvey_torch yet (ROADMAP.md, "
+            f"queue 1: streaming)")
+    return torch.from_numpy(np.ascontiguousarray(split_np)).to(device)
+
+
+def _load_resume(ckpt_path: str, device):
+    ck = io.load(ckpt_path)
+    if ck.get("orbax_state"):
+        raise RuntimeError(
+            f"{ckpt_path} points at an Orbax resume directory "
+            f"({ck['orbax_state']}), written by clsurvey_tpu; clsurvey_torch "
+            f"reads only plain-pickle resume checkpoints. Delete it to "
+            f"restart the task.")
+    state = TrainState(
+        trainable_from_host(ck["trainable"], device, requires_grad=True),
+        tree_to_device(ck["batch_stats"], device),
+        trainable_from_host(ck["momentum"], device, requires_grad=False),
+        tree_to_device(ck["mstate"], device))
+    return ck, state
+
+
+def train_task(engine: Engine, job: TrainJob, state: TrainState,
+               task_data, log: Callable = print,
+               perms: Callable[[int], Any] | None = None):
+    """Epoch loop with best-val tracking / lr decay / early stop / resume —
+    behavior of ref:src/methods/Finetune/train_SGD.py:41-189 shared by every
+    method. Returns (best_model_dict, best_val_acc, final_state).
+
+    ``perms(epoch)``, when given, supplies the epoch's permutation of the
+    train split (tests hand in the JAX package's); otherwise it comes from
+    a generator seeded with (job.seed, epoch)."""
+    ctx = engine.ctx
+    os.makedirs(job.exp_dir, exist_ok=True)
+    ckpt_path = os.path.join(job.exp_dir, EPOCH_CKPT_FILENAME)
+    best_path = os.path.join(job.exp_dir, BEST_MODEL_FILENAME)
+
+    train_images = _resident(task_data.train.images, "train", ctx.device)
+    train_labels = _resident(task_data.train.labels, "train labels",
+                             ctx.device).long()
+    val_images = _resident(task_data.val.images, "val", ctx.device)
+    val_labels = _resident(task_data.val.labels, "val labels",
+                           ctx.device).long()
+    n_train = int(train_images.shape[0])
+
+    start_epoch, lr = 0, job.lr
+    best_acc, val_beat_counts = 0.0, 0
+    best_model = None
+    error_history: list = []  # per-epoch val error %, dumped as JSON
+    history_path = os.path.join(job.exp_dir, "error_history.json")
+
+    if job.resume and io.exists(ckpt_path):
+        ck, state = _load_resume(ckpt_path, ctx.device)
+        start_epoch = ck["epoch"] + 1
+        lr = ck["lr"]
+        best_acc = ck["best_acc"]
+        val_beat_counts = ck["val_beat_counts"]
+        if io.exists(best_path):
+            best_model = io.load(best_path)
+        if os.path.isfile(history_path):
+            with open(history_path) as f:
+                error_history = json.load(f).get("error_history", [])
+            # the history file is written every epoch but the state ckpt
+            # only every saving_freq: truncate so re-run epochs don't
+            # append duplicate entries (index == epoch must hold)
+            error_history = error_history[:start_epoch]
+        log(f"=> resumed epoch {start_epoch} lr={lr:g} best={best_acc:.4f}")
+
+    # host snapshot of the task-start model: the fallback for runs that
+    # never improve (a NaN-aborted final state must not chain into the next
+    # task). aux_heavy rules (rehearsal family) defer their large method-aux
+    # export to one attach per attempt.
+    aux_heavy = bool(getattr(ctx.update_rule, "aux_heavy", False))
+    init_model = model_state_dict(
+        ctx, state, meta={"task": ctx.task, "n_tasks": ctx.n_tasks,
+                          "failed_attempt": True},
+        include_aux=not aux_heavy)
+
+    # large method states stretch the resume-checkpoint period 4x
+    mstate_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(state.mstate)
+                       if isinstance(t, torch.Tensor))
+    ckpt_freq = job.saving_freq * (4 if mstate_bytes > (32 << 20) else 1)
+    ran_epochs = False
+
+    for epoch in range(start_epoch, job.num_epochs):
+        # early stop (ref:train_SGD.py:19-21: count > threshold)
+        if val_beat_counts > job.early_stop_threshold:
+            log("training terminated")
+            break
+        # decay (ref:train_SGD.py:24-29: count == threshold)
+        if val_beat_counts == job.decay_threshold:
+            lr = lr * 0.1
+            log(f"lr is set to {lr:g}")
+
+        if perms is not None:
+            perm = torch.tensor(np.asarray(perms(epoch)), dtype=torch.long)
+        else:
+            perm = torch.randperm(n_train,
+                                  generator=rng_lib.generator(job.seed,
+                                                              epoch))
+        flip_gen = rng_lib.generator(job.seed, epoch, 1, device=ctx.device)
+        ran_epochs = True
+        state, metrics = engine.train_epoch(
+            state, train_images, train_labels, perm, flip_gen, lr,
+            job.batch_size)
+        train_loss = float(metrics["loss"])
+        train_acc = float(metrics["acc"])
+
+        val_acc, _, _ = engine.evaluate(
+            state.trainable, state.batch_stats, val_images, val_labels,
+            job.eval_batch_size)
+        log(f"epoch {epoch}: loss={train_loss:.4f} "
+            f"train_acc={train_acc:.4f} val_acc={val_acc:.4f} lr={lr:g}")
+
+        # per-epoch error history JSON next to the checkpoint
+        # (ref:src/methods/packnet/main.py:287-291 dumps error_history)
+        error_history.append(100.0 * (1.0 - val_acc))
+        if job.save_models_mode:
+            with open(history_path, "w") as f:
+                json.dump({"error_history": error_history, "lr": lr,
+                           "train_loss": train_loss}, f)
+
+        if not np.isfinite(train_loss) or train_loss > DIVERGENCE_LOSS_BOUND:
+            # NaN guard aborts training (ref:src/methods/SI/train_SI.py:242);
+            # a finite-but-exploded loss is the same failure one epoch
+            # earlier and must not be recorded as the best model
+            log(f"diverged (loss={train_loss:.4g}) — aborting training")
+            break
+
+        if val_acc > best_acc:
+            best_acc = val_acc
+            val_beat_counts = 0
+            best_model = model_state_dict(
+                ctx, state, meta={"task": ctx.task, "n_tasks": ctx.n_tasks,
+                                  "epoch": epoch, "val_acc": val_acc},
+                include_aux=not aux_heavy)
+            if job.save_models_mode:
+                io.save(best_model, best_path)
+                # memory telemetry next to every best model
+                # (ref:src/methods/Finetune/train_SGD.py:142-144)
+                timing.save_mem_req(job.exp_dir)
+        else:
+            val_beat_counts += 1
+
+        if job.save_models_mode and (epoch % ckpt_freq == 0
+                                     or epoch == job.num_epochs - 1):
+            meta = {"epoch": epoch, "lr": lr, "best_acc": best_acc,
+                    "val_beat_counts": val_beat_counts}
+            trees = {"trainable": trainable_to_host(state.trainable),
+                     "batch_stats": io.to_host(state.batch_stats),
+                     "momentum": trainable_to_host(state.momentum),
+                     "mstate": io.to_host(state.mstate)}
+            io.save({**meta, **trees}, ckpt_path)
+
+    need_save = False
+    if best_model is None:  # zero-epoch or fully-failed (e.g. NaN) runs
+        best_model = init_model
+        # downstream phases chain through best_model.pth.tar on disk;
+        # a retained-but-never-improved attempt must still leave one
+        need_save = True
+    # aux_heavy: attach the method aux ONCE per attempt (see
+    # model_state_dict), so every best model a SUCCESS flag vouches for
+    # carries its aux
+    aux = (ctx.update_rule.export_aux(state.mstate) if aux_heavy else None)
+    if aux is not None and (ran_epochs or "method_aux" not in best_model):
+        best_model["method_aux"] = io.to_host(aux)
+        need_save = True
+    if need_save and job.save_models_mode:
+        io.save(best_model, best_path)
+    return best_model, best_acc, state

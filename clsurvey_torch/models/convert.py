@@ -1,0 +1,51 @@
+"""Backbone weights between the JAX package's layout and the port's.
+
+Checkpoints on disk keep the JAX package's pytree
+``{'features': {'conv_<i>': {'kernel': HWIO, 'bias'}}, 'trunk': {'fc_<j>':
+{'kernel': (in, out), 'bias'}}}`` of numpy arrays, so a model written by
+either package loads in the other. In the port the same weights are a flat
+``{'features.conv_<i>.weight': OIHW, ..., 'trunk.fc_<j>.weight': (out, in),
+...}`` dict of tensors, the backbone module's parameter names. ``fc_0``'s
+rows need no permutation: both packages flatten NHWC, channels fastest.
+Conv weights are made channels_last, the layout the convs run in."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_SUFFIX = {"kernel": "weight", "bias": "bias"}
+
+
+def params_from_jax(tree: dict, device=None) -> dict[str, torch.Tensor]:
+    """JAX-layout numpy pytree -> ``{torch parameter name: tensor}``."""
+    out = {}
+    for group, layers in tree.items():
+        for layer, leaves in layers.items():
+            for leaf, value in leaves.items():
+                a = np.asarray(value, dtype=np.float32)
+                if leaf == "kernel":
+                    a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                t = torch.tensor(a, device=device)  # a copy, never an alias
+                if t.dim() == 4:
+                    t = t.contiguous(memory_format=torch.channels_last)
+                out[f"{group}.{layer}.{_SUFFIX[leaf]}"] = t
+    return out
+
+
+def params_to_jax(params: dict[str, torch.Tensor] | nn.Module) -> dict:
+    """``{torch parameter name: tensor}`` (or a backbone module) -> the
+    JAX-layout numpy pytree."""
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    inverse = {v: k for k, v in _SUFFIX.items()}
+    tree: dict = {}
+    for name, t in params.items():
+        group, layer, suffix = name.split(".")
+        a = t.detach().float().cpu().numpy()
+        if suffix == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        tree.setdefault(group, {}).setdefault(layer, {})[inverse[suffix]] = \
+            np.ascontiguousarray(a)
+    return tree

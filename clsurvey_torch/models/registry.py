@@ -1,0 +1,155 @@
+"""Model-name parsing + init-model dump.
+
+Counterpart of ``clsurvey_tpu/models/registry.py`` (ref:src/models/net.py:
+15-36 ``parse_model_name``): the same model-name strings and the same
+``models_root_path`` layout. The initial network is created and pickled on
+first parse, in the JAX package's layout ``{'params', 'batch_stats',
+'heads', 'meta'}`` (numpy), so either package can start from a file the
+other wrote; ``models/convert.py`` maps the backbone weights at load and
+save. This slice builds the VGG family without batch-norm or dropout."""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from clsurvey_torch.models import heads as heads_lib
+from clsurvey_torch.models.backbones import VGGBackbone
+from clsurvey_torch.models.convert import params_to_jax
+from clsurvey_torch.utils import io, rng as rng_lib
+
+
+class ModelRegularization:
+    vanilla = "vanilla"
+    weight_decay = "L2"
+    dropout = "DROP"
+    batchnorm = "BN"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to clsurvey_torch yet (ROADMAP.md, queue 1: "
+        f"{item}); use clsurvey_tpu for it")
+
+
+@dataclass
+class ModelSpec:
+    """The backbone factory + metadata; ``path`` is where the pickled init
+    state lives (ref:src/models/net.py:77-237)."""
+
+    name: str
+    arch: str                      # a VGG_CFG name
+    input_size: tuple              # (H, W)
+    classifier_dims: tuple = ()
+    models_root_path: str = ""
+    compute_dtype: Any = torch.float32
+    path: str = field(default="", init=False)
+
+    def __post_init__(self):
+        parent = os.path.join(
+            self.models_root_path,
+            f"customVGG_input={self.input_size[0]}x{self.input_size[1]}")
+        self.path = os.path.join(parent, self.name + ".pth.tar")
+
+    def make_backbone(self) -> VGGBackbone:
+        return VGGBackbone(self.arch, self.classifier_dims, self.input_size,
+                           dtype=self.compute_dtype)
+
+    @property
+    def feature_dim(self) -> int:
+        return int(self.classifier_dims[-1])
+
+
+def _parse_classifier_dims(model_name: str) -> tuple:
+    """``..._cl_128_128...`` -> (128, 128)."""
+    segs = model_name.split("_")
+    if "cl" not in segs:
+        raise ValueError(f"no classifier spec ('_cl_d1_d2') in {model_name}")
+    i = segs.index("cl")
+    return (int(segs[i + 1]), int(segs[i + 2]))
+
+
+def parse_model_name(models_root_path: str, model_name: str,
+                     input_size: tuple,
+                     compute_dtype=torch.float32) -> ModelSpec:
+    """String -> ModelSpec (ref:src/models/net.py:15-36)."""
+    segs = model_name.split("_")
+    if "alexnet" in model_name:
+        raise _not_ported(model_name, "AlexNet")
+    if ModelRegularization.batchnorm in segs \
+            or ModelRegularization.dropout in segs:
+        # BN needs care: flax updates the running variance with the
+        # biased batch variance at momentum 0.9, torch's BatchNorm2d with
+        # the unbiased one
+        raise _not_ported(model_name, "_BN/_DROP variants")
+    for cfg in ("small_VGG9", "wide_VGG9", "deep_VGG22", "base_VGG9",
+                "tiny_CNN", "19normal", "16normal", "11normal"):
+        if cfg in model_name:
+            return ModelSpec(
+                model_name, cfg, input_size,
+                classifier_dims=_parse_classifier_dims(model_name),
+                models_root_path=models_root_path,
+                compute_dtype=compute_dtype,
+            )
+    raise NotImplementedError(f"MODEL NOT IMPLEMENTED YET: {model_name}")
+
+
+def get_init_modelname(num_epochs, batch_size, lr_grid, weight_decay,
+                       model_name) -> str:
+    """First-task base-model experiment name (ref:src/models/net.py:39-53)."""
+    name = [f"e={num_epochs}", f"bs={batch_size}", f"lr={sorted(lr_grid)}"]
+    if weight_decay != 0:
+        name.append(f"{ModelRegularization.weight_decay}={weight_decay}")
+    if ModelRegularization.batchnorm in model_name:
+        name.append(ModelRegularization.batchnorm)
+    if ModelRegularization.dropout in model_name:
+        name.append(ModelRegularization.dropout)
+    return "_".join(name)
+
+
+def init_model_state(spec: ModelSpec, seed: int, max_tasks: int,
+                     classes_per_task: int, class_counts=None) -> dict:
+    """Initialise backbone params + head bank from ``seed``. Returns the
+    canonical model dict ``{'params', 'batch_stats', 'heads', 'meta'}`` in
+    the JAX package's layout (numpy)."""
+    backbone = spec.make_backbone()
+    backbone.reset_parameters(rng_lib.generator(seed, 0))
+    head_bank = heads_lib.init_head_bank(
+        rng_lib.generator(seed, 1), max_tasks, spec.feature_dim,
+        classes_per_task, class_counts)
+    return {
+        "params": params_to_jax(backbone),
+        "batch_stats": {},
+        "heads": io.to_host(head_bank),
+        "meta": {
+            "model_name": spec.name,
+            "max_tasks": max_tasks,
+            "classes_per_task": classes_per_task,
+        },
+    }
+
+
+def create_init_model(spec: ModelSpec, seed: int, max_tasks: int,
+                      classes_per_task: int, class_counts=None) -> str:
+    """Create + pickle the shared init model if missing
+    (ref:src/models/net.py:243-262). Idempotent like the reference."""
+    if io.exists(spec.path):
+        return spec.path
+    state = init_model_state(spec, seed, max_tasks, classes_per_task,
+                             class_counts)
+    io.save(state, spec.path)
+    print(f"CREATED INIT MODEL {spec.name} -> {spec.path}")
+    return spec.path
+
+
+def count_parameters(state: dict) -> int:
+    """ref:src/models/net.py:282-300 param counting."""
+    total = sum(np.asarray(leaf).size
+                for layers in state["params"].values()
+                for leaves in layers.values() for leaf in leaves.values())
+    return total + sum(np.asarray(state["heads"][k]).size
+                       for k in ("kernel", "bias"))

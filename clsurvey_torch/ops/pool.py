@@ -1,0 +1,140 @@
+"""2x2 stride-2 max-pool on NHWC with an argmax-routed backward.
+
+Counterpart of ``clsurvey_tpu/ops/pool_pallas.py`` (``maxpool2x2`` and
+``pool2x2``). The forward stores a 1-byte argmax code per output cell
+(0..3, row-major in the window); the backward routes the cotangent to that
+position and writes 0 at the other three. On a CUDA tensor the pair runs
+kernels B1 and B2 (``csrc/pool.cu``); on a CPU tensor it runs the plain
+PyTorch versions :func:`pool_fwd_plain` / :func:`pool_bwd_plain`.
+
+Ties go to the first maximum in window order, through the same three
+compares as the JAX kernel (``a>=b``, ``d>=e``, top ``>=`` bottom), which
+is XLA select-and-scatter's rule. Odd H or W pool with VALID floor
+semantics; the dropped row / column gets a zero gradient.
+
+Unlike the JAX package there is no ``CLSURVEY_PALLAS_POOL`` gate: the pool
+always goes through this pair, whose max equals ``reduce_window``'s."""
+
+from __future__ import annotations
+
+import torch
+
+from clsurvey_torch.ops import _kernels
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def pool_fwd_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel B1: (values, uint8 codes), both NHWC."""
+    b, h, w, c = x.shape
+    ho, wo = h // 2, w // 2
+    win = x[:, :2 * ho, :2 * wo, :].reshape(b, ho, 2, wo, 2, c)
+    a, bb = win[:, :, 0, :, 0], win[:, :, 0, :, 1]
+    d, e = win[:, :, 1, :, 0], win[:, :, 1, :, 1]
+    zero = torch.zeros((), dtype=torch.uint8, device=x.device)
+    one, two, three = zero + 1, zero + 2, zero + 3
+    t_ge = a >= bb
+    val_t, idx_t = torch.where(t_ge, a, bb), torch.where(t_ge, zero, one)
+    b_ge = d >= e
+    val_b, idx_b = torch.where(b_ge, d, e), torch.where(b_ge, two, three)
+    f_ge = val_t >= val_b
+    return torch.where(f_ge, val_t, val_b), torch.where(f_ge, idx_t, idx_b)
+
+
+def pool_bwd_plain(g: torch.Tensor, code: torch.Tensor,
+                   x_shape) -> torch.Tensor:
+    """Plain version of kernel B2: scatter ``g`` to the coded positions."""
+    b, h, w, c = x_shape
+    ho, wo = h // 2, w // 2
+    zero = torch.zeros_like(g)
+    parts = [torch.where(code == k, g, zero) for k in range(4)]
+    # (b, ho, wo, c, 2, 2) -> (b, ho, 2, wo, 2, c): code k = 2*row + col
+    win = torch.stack(parts, dim=-1).view(b, ho, wo, c, 2, 2)
+    win = win.permute(0, 1, 4, 2, 5, 3).reshape(b, 2 * ho, 2 * wo, c)
+    if (h, w) == (2 * ho, 2 * wo):
+        return win.contiguous()
+    dx = g.new_zeros((b, h, w, c))
+    dx[:, :2 * ho, :2 * wo] = win
+    return dx
+
+
+def _check_input(x: torch.Tensor, what: str) -> None:
+    if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous NHWC float32/bfloat16 "
+                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+
+
+def _pool_fwd_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_input(x, "kernel B1")
+    b, h, w, c = x.shape
+    if h < 2 or w < 2:
+        raise ValueError(f"kernel B1 needs H, W >= 2, got {tuple(x.shape)}")
+    out_shape = (b, h // 2, w // 2, c)
+    val = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    code = torch.empty(out_shape, dtype=torch.uint8, device=x.device)
+    fn = _kernels.lib("pool").clsurvey_pool_fwd
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), val.data_ptr(), code.data_ptr(), b, h, w, c,
+                int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.record_launch(rc, "pool_fwd")
+    return val, code
+
+
+def _pool_bwd_cuda(g: torch.Tensor, code: torch.Tensor,
+                   x_shape) -> torch.Tensor:
+    _check_input(g, "kernel B2")
+    b, h, w, c = x_shape
+    out_shape = (b, h // 2, w // 2, c)
+    if tuple(g.shape) != out_shape or tuple(code.shape) != out_shape \
+            or code.dtype != torch.uint8 or not code.is_contiguous() \
+            or code.device != g.device:
+        raise ValueError(f"kernel B2: cotangent {tuple(g.shape)} and code "
+                         f"{tuple(code.shape)} must both be {out_shape}")
+    dx = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    fn = _kernels.lib("pool").clsurvey_pool_bwd
+    with torch.cuda.device(g.device):
+        rc = fn(g.data_ptr(), code.data_ptr(), dx.data_ptr(), b, h, w, c,
+                int(g.dtype == torch.bfloat16),
+                torch.cuda.current_stream(g.device).cuda_stream)
+    _kernels.record_launch(rc, "pool_bwd")
+    return dx
+
+
+def pool_fwd(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _pool_fwd_cuda(x)
+    if x.device.type != "cpu":
+        raise ValueError(f"no pool path for {x.device}")
+    return pool_fwd_plain(x)
+
+
+def pool_bwd(g: torch.Tensor, code: torch.Tensor, x_shape) -> torch.Tensor:
+    """Kernel B2 on a CUDA tensor, its plain version on a CPU tensor."""
+    if g.device.type == "cuda":
+        return _pool_bwd_cuda(g, code, x_shape)
+    if g.device.type != "cpu":
+        raise ValueError(f"no pool path for {g.device}")
+    return pool_bwd_plain(g, code, x_shape)
+
+
+class MaxPool2x2(torch.autograd.Function):
+    """The forward / backward pair, joined for autograd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        val, code = pool_fwd(x)
+        ctx.save_for_backward(code)
+        ctx.x_shape = tuple(x.shape)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        (code,) = ctx.saved_tensors
+        return pool_bwd(g.contiguous(), code, ctx.x_shape)
+
+
+def pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 max-pool of an NHWC tensor, differentiable."""
+    return MaxPool2x2.apply(x)

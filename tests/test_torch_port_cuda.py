@@ -1,0 +1,113 @@
+"""clsurvey_torch's CUDA kernels against their plain PyTorch versions, on
+the card. Every test here is marked ``cuda`` and skips without a card; on a
+machine with one, run them with
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_port_cuda.py -q
+
+(``--noconftest``: the repo's conftest imports JAX, which a GPU machine
+need not have; nothing here uses it.)
+
+- kernel A (normalize + flip): bfloat16 bit-equal; float32 within 1 ulp
+  (both sides round the product, then the difference; no FMA);
+- kernels B1/B2 (pool forward / backward): bit-equal values, codes and dx,
+  float32 and bfloat16, tie-heavy inputs, even and odd sizes;
+- the backbone on the card against the same backbone on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+from clsurvey_torch.models import registry as treg
+from clsurvey_torch.models.convert import params_from_jax
+from clsurvey_torch.ops import _kernels, pool, preprocess as pp
+from clsurvey_torch.utils import device as device_lib
+
+pytestmark = pytest.mark.cuda
+
+MEAN = (0.485, 0.456, 0.406)
+STD = (0.229, 0.224, 0.225)
+
+
+@pytest.fixture()
+def cuda():
+    """The card, decided per test (never at import or collection)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return device_lib.resolve("cuda")  # TF32 off, as the port runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(200, 64, 64, 3), (5, 7, 9, 3)])
+def test_preprocess_kernel_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda,
+                      generator=gen)
+    flip = torch.randint(0, 2, (shape[0],), dtype=torch.uint8, device=cuda,
+                         generator=gen)
+    before = _kernels.LAUNCHES["normalize_flip"]
+    for mask in (flip, None):
+        got = pp.preprocess(x, MEAN, STD, mask, dtype)
+        want = pp.normalize_flip_plain(x, MEAN, STD, mask, dtype)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            ulp = (torch.nextafter(want, torch.full_like(want, np.inf))
+                   - want).abs()
+            assert bool(((got - want).abs() <= ulp).all())
+    assert _kernels.LAUNCHES["normalize_flip"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(200, 64, 64, 64), (200, 8, 8, 128),
+                                   (6, 9, 7, 64), (3, 2, 3, 5)])
+def test_pool_kernels_match_plain(cuda, dtype, shape):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randint(0, 3, shape, device=cuda, generator=gen).to(dtype)
+    val, code = pool.pool_fwd(x)
+    pval, pcode = pool.pool_fwd_plain(x)
+    assert torch.equal(val, pval) and torch.equal(code, pcode)
+    g = torch.randn(val.shape, device=cuda, generator=gen).to(dtype)
+    assert torch.equal(pool.pool_bwd(g, code, x.shape),
+                       pool.pool_bwd_plain(g, code, x.shape))
+
+
+def test_pool_autograd_matches_max_pool2d(cuda):
+    x = torch.randn(4, 16, 16, 64, device=cuda, requires_grad=True)
+    g = torch.randn(4, 8, 8, 64, device=cuda)
+    (dx,) = torch.autograd.grad(pool.pool2x2(x), x, g)
+    ref = torch.nn.functional.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
+    (dref,) = torch.autograd.grad(ref, x, g.permute(0, 3, 1, 2))
+    assert torch.equal(pool.pool2x2(x), ref.permute(0, 2, 3, 1))
+    assert torch.equal(dx, dref)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError):
+        pool.pool_fwd(torch.zeros(2, 8, 8, 4, device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError):
+        pool.pool_fwd(torch.zeros(2, 8, 8, 4, device=cuda,
+                                  dtype=torch.float16))
+    with pytest.raises(ValueError):
+        pp.preprocess(torch.zeros(2, 8, 8, 4, dtype=torch.uint8,
+                                  device=cuda), MEAN, STD)
+
+
+def test_backbone_on_the_card_matches_the_cpu(cuda):
+    spec = treg.parse_model_name("", "small_VGG9_cl_128_128", (64, 64))
+    model = treg.init_model_state(spec, seed=0, max_tasks=1,
+                                  classes_per_task=4)
+    module = spec.make_backbone()
+    x = torch.randn(8, 64, 64, 3, generator=torch.Generator().manual_seed(2))
+    feats = {}
+    for dev in ("cpu", cuda):
+        params = {k: v.requires_grad_()
+                  for k, v in params_from_jax(model["params"], dev).items()}
+        out = torch.func.functional_call(module.to(dev), params,
+                                         (x.to(dev),))
+        grads = torch.autograd.grad(out.square().sum(), list(params.values()))
+        feats[str(dev)] = (out.detach().cpu(), [g.cpu() for g in grads])
+    (f_cpu, g_cpu), (f_gpu, g_gpu) = feats["cpu"], feats[str(cuda)]
+    torch.testing.assert_close(f_gpu, f_cpu, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
