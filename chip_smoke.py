@@ -4,25 +4,36 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits nonzero without the final ``ok`` line:
+Phases, in order; any failure exits nonzero without the final ``ok`` line
+(``--phases a,b`` runs a subset, always after ``card``, and prints no
+``ok`` line):
 
 1. card: name and power limit, then build every kernel (one nvcc per
    source, all started together) and print the ptxas report;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (f32 and bf16, tie-heavy pool inputs, one odd
-   pool shape), then its device time (CUPTI, via torch.profiler) and its
-   CUDA-event time over back-to-back calls, beside the plain version's,
-   the library call's where one exists, and the bound;
+   pool shape; kernel A's vector and scalar kernels, an unaligned pointer)
+   and at the shapes MAS's importance pass gives them (chunks of 16, the
+   pool pair also under ``torch.func.vmap(grad)``), then its device time
+   (CUPTI, via torch.profiler) and its CUDA-event time over back-to-back
+   calls, beside the plain version's, the library call's where one
+   exists, the bound, and an empty kernel's time;
 3. cli: the timing_mode finetuning CLI on small_VGG9_cl_128_128, with the
    launch counters zeroed just before and read just after; every kernel
    must have launched, every task must have left a best model that
    ``clsurvey_torch.utils.io.load`` reads back;
-4. protocol: bench.py's throughput point (20k random uint8 rows, batch
+4. framework: the SI first-task base-model dump, then SI, EWC and MAS
+   through Phase 1, Phase 2 and ``--test`` under timing_mode, counters
+   zeroed before each method; checks the decay state, SUCCESS tokens, best
+   models with their importance trees, the result dicts, and one eval
+   entry, EWC's Fisher and MAS's omega on the card against the CPU;
+5. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is the ``{"kernels": [...]}`` record (in a
+partial run its launch counts are null for the phases that did not run);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,6 +55,13 @@ POOL_SHAPES = ((200, 64, 64, 64), (200, 32, 32, 64), (200, 16, 16, 64),
                (200, 8, 8, 128))
 ODD_POOL_SHAPE = (6, 9, 7, 64)
 PREPROCESS_SHAPE = (200, 64, 64, 3)
+# what MAS's importance pass gives the kernels: chunks of 16 samples, which
+# the pool's vmap rule folds from (16, 1, H, W, C) into one batch of 16
+MAS_CHUNK = 16
+MAS_PREPROCESS_SHAPE = (MAS_CHUNK,) + PREPROCESS_SHAPE[1:]
+MAS_POOL_SHAPES = tuple((MAS_CHUNK,) + s[1:] for s in POOL_SHAPES)
+# a row width that is not a multiple of 8: kernel A's scalar route
+SCALAR_PREPROCESS_SHAPE = (200, 64, 60, 3)
 
 
 def log(*msg) -> None:
@@ -132,39 +150,116 @@ def _timings(row: dict, kernel, plain, library) -> dict:
     return row
 
 
-def check_preprocess(gen) -> dict:
-    from clsurvey_torch.ops import preprocess as pp
+def _preprocess_agrees(got, want, dtype, what) -> float:
+    """bf16: both round the same float32 value once -> bit-equal. float32:
+    torch's mul and sub are separate kernels and the kernel uses
+    __fmul_rn/__fsub_rn, so no FMA on either side; allow 1 ulp all the
+    same, the bound the JAX package's XLA CPU path needs."""
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().max().item()
+    ok = torch.equal(got, want) if dtype == torch.bfloat16 \
+        else _ulp_ok(got, want)
+    if not ok:
+        raise AssertionError(f"kernel A ({what}) disagrees with its plain "
+                             f"version in {dtype}: max |diff| {diff}")
+    return diff
 
-    x = torch.randint(0, 256, PREPROCESS_SHAPE, dtype=torch.uint8,
-                      device="cuda", generator=gen)
-    flip = torch.randint(0, 2, (PREPROCESS_SHAPE[0],), dtype=torch.uint8,
-                         device="cuda", generator=gen)
+
+def _unaligned_u8(shape, gen) -> torch.Tensor:
+    """Random uint8 images whose base pointer is 1 past a 16-byte boundary:
+    kernel A's C entry point routes them to its scalar kernel."""
+    n = 1
+    for d in shape:
+        n *= d
+    flat = torch.randint(0, 256, (n + 1,), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+    x = flat[1:].view(shape)
+    if x.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned case is aligned")
+    return x
+
+
+def check_preprocess(gen) -> dict:
+    """Kernel A against its plain version, with and without a flip mask,
+    in both dtypes: the vector kernel at the main path's shape and at the
+    shape of MAS's chunks, the scalar kernel at the main path's shape
+    (through a base pointer that is not 16-byte aligned) and at a width
+    that is not a multiple of 8. Timed: the vector kernel at the main
+    path's shape (the rows the ``kernels`` record reports), the scalar
+    kernel at width 60, and an empty kernel on one warp."""
+    from clsurvey_torch.ops import _kernels, preprocess as pp
+
+    def aligned(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8,
+                             device="cuda", generator=gen)
+
+    cases = (("vec", aligned(PREPROCESS_SHAPE), True),
+             ("vec, MAS chunk", aligned(MAS_PREPROCESS_SHAPE), False),
+             ("scalar, same shape", _unaligned_u8(PREPROCESS_SHAPE, gen),
+              False),
+             ("scalar, width 60", aligned(SCALAR_PREPROCESS_SHAPE), True))
     rows, err = [], 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        got = pp.preprocess(x, MEAN, STD, flip, dtype)
-        want = pp.normalize_flip_plain(x, MEAN, STD, flip, dtype)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs().max().item()
-        err = max(err, diff)
-        # bf16: both round the same float32 value once -> bit-equal.
-        # float32: torch's mul and sub are separate kernels and the kernel
-        # uses __fmul_rn/__fsub_rn, so no FMA on either side; allow 1 ulp
-        # all the same, the bound the JAX package's XLA CPU path needs.
-        ok = torch.equal(got, want) if dtype == torch.bfloat16 \
-            else _ulp_ok(got, want)
-        if not ok:
-            raise AssertionError(f"kernel A disagrees with its plain "
-                                 f"version in {dtype}: max |diff| {diff}")
-        nbytes = x.numel() + flip.numel() + got.numel() * got.element_size()
-        rows.append(_timings(
-            {"shape": list(PREPROCESS_SHAPE), "dtype": str(dtype),
-             "exact": bool(torch.equal(got, want)), "max_abs_err": diff,
-             "bound_ms": bound_ms(nbytes)},
-            kernel=lambda d=dtype: pp.preprocess(x, MEAN, STD, flip, d),
-            plain=lambda d=dtype: pp.normalize_flip_plain(x, MEAN, STD,
-                                                          flip, d),
-            library=None))
-    return {"err": err, "rows": rows}
+    for what, x, timed in cases:
+        flip = torch.randint(0, 2, (x.shape[0],), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            for mask in (flip, None):
+                got = pp.preprocess(x, MEAN, STD, mask, dtype)
+                want = pp.normalize_flip_plain(x, MEAN, STD, mask, dtype)
+                diff = _preprocess_agrees(got, want, dtype, what)
+                err = max(err, diff)
+            if not timed:
+                continue
+            nbytes = x.numel() + got.numel() * got.element_size()
+            rows.append(_timings(
+                {"shape": list(x.shape), "dtype": str(dtype), "path": what,
+                 "main": what == "vec", "max_abs_err": diff,
+                 "bound_ms": bound_ms(nbytes + flip.numel())},
+                kernel=lambda d=dtype: pp.preprocess(x, MEAN, STD, flip, d),
+                plain=(lambda d=dtype: pp.normalize_flip_plain(
+                    x, MEAN, STD, flip, d)) if what == "vec" else None,
+                library=None))
+    empty = _kernels.lib("preprocess").clsurvey_empty_launch
+    stream = torch.cuda.current_stream().cuda_stream
+    floor = dict(zip(("device_ms", "event_ms"),
+                     time_ms(lambda: empty(1, 32, stream))))
+    for r in rows:
+        log(f"kernel A [{r['path']}] {r['dtype']} {r['shape']}: "
+            f"{r['kernel_ms']:.5f} ms device (bound {r['bound_ms']:.5f}, "
+            f"{100 * r['bound_ms'] / r['kernel_ms']:.0f}% of it reached)")
+    log("empty kernel, one warp:", json.dumps(floor))
+    return {"err": err, "rows": rows, "empty_kernel": floor}
+
+
+def check_pool_under_vmap(shape, dtype, gen) -> None:
+    """The pool pair as MAS's importance pass reaches it: under
+    ``torch.func.vmap(grad)`` over ``shape[0]`` samples of batch 1, whose
+    vmap rule folds them into one launch of B1 and one of B2. Values and
+    per-sample dx bit-equal to the plain versions on the folded batch."""
+    from clsurvey_torch.ops import _kernels, pool
+
+    v = shape[0]
+    x = torch.randint(0, 3, shape, device="cuda", generator=gen).to(dtype)
+    pval, pcode = pool.pool_fwd_plain(x)
+    g = torch.randn(pval.shape, device="cuda", generator=gen,
+                    dtype=torch.float32).to(dtype)
+    pdx = pool.pool_bwd_plain(g, pcode, x.shape)
+    per_sample = lambda t: t.view(v, 1, *t.shape[1:])
+    before = dict(_kernels.LAUNCHES)
+    val = torch.func.vmap(pool.pool2x2)(per_sample(x))
+    # d/dx1 of sum(pool(x1) * g1) is B2's routing of g1 itself
+    dx = torch.func.vmap(torch.func.grad(
+        lambda x1, g1: (pool.pool2x2(x1) * g1).sum()))(
+            per_sample(x), per_sample(g))
+    torch.cuda.synchronize()
+    launched = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+    if launched != {"normalize_flip": 0, "pool_fwd": 2, "pool_bwd": 1}:
+        raise AssertionError(f"pool under vmap at {shape}: launches "
+                             f"{launched}, not one per pool call")
+    if not (torch.equal(val, per_sample(pval))
+            and torch.equal(dx, per_sample(pdx))):
+        raise AssertionError(f"the pool under vmap disagrees with its "
+                             f"plain version at {shape} {dtype}")
 
 
 def check_pool(gen) -> tuple[dict, dict]:
@@ -173,7 +268,7 @@ def check_pool(gen) -> tuple[dict, dict]:
     from clsurvey_torch.ops import pool
 
     fwd_rows, bwd_rows, err = [], [], 0.0
-    for shape in POOL_SHAPES + (ODD_POOL_SHAPE,):
+    for shape in POOL_SHAPES + (ODD_POOL_SHAPE,) + MAS_POOL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             # small integers: frequent in-window ties
             x = torch.randint(0, 3, shape, device="cuda",
@@ -191,8 +286,10 @@ def check_pool(gen) -> tuple[dict, dict]:
             if not torch.equal(dx, pdx):
                 raise AssertionError(f"kernel B2 disagrees at {shape} "
                                      f"{dtype}")
-            if shape == ODD_POOL_SHAPE:
-                continue
+            if shape in MAS_POOL_SHAPES:
+                check_pool_under_vmap(shape, dtype, gen)
+            if shape not in POOL_SHAPES:
+                continue  # exactness only: not timed
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
             lib_out, lib_idx = F.max_pool2d(x_nchw, 2, 2,
                                             return_indices=True)
@@ -223,7 +320,8 @@ def _kernel_row(name, source, replaces, check, launches, dtype) -> dict:
     main path's shapes in ``dtype`` (the sum over the shapes it runs at
     once per step), with every (shape, dtype) measured kept under
     ``shapes``."""
-    rows = [r for r in check["rows"] if r["dtype"] == str(dtype)]
+    rows = [r for r in check["rows"]
+            if r["dtype"] == str(dtype) and r.get("main", True)]
     total = lambda key: (None if any(r[key] is None for r in rows)
                          else sum(r[key] for r in rows))
     return {
@@ -283,41 +381,218 @@ def phase_cli(root: str) -> dict:
     return launches
 
 
-def check_cli_model(manager, model: dict) -> None:
-    """The last task's best model: finite weights, and logits on 64 of its
-    val images on the card (kernels A, B1) equal to the CPU's (the plain
-    versions, another conv library), within float32 summation-order
-    tolerance."""
+def _logits_on(manager, model: dict, images, task: int, dev: str):
+    """Logits of ``task``'s head for uint8 ``images`` under ``model``, on
+    ``dev``: kernels A and B1 on the card, their plain versions (and
+    another conv library) on the CPU."""
     from clsurvey_torch.engine.train import state_from_model
     from clsurvey_torch.models import heads
     from clsurvey_torch.ops import preprocess as pp
 
-    for layers in model["params"].values():
-        for leaves in layers.values():
-            for leaf in leaves.values():
-                if not torch.isfinite(torch.as_tensor(leaf)).all():
-                    raise AssertionError("non-finite weights in the best "
-                                         "model")
     seq = manager.dataset
-    images = torch.from_numpy(
-        seq.get_task_dataset(seq.task_count).val.images[:64])
+    backbone = manager.model_spec.make_backbone().to(dev)
+    state = state_from_model(model, None, dev)
+    with torch.no_grad():
+        x = pp.preprocess(torch.as_tensor(images).to(dev), seq.mean,
+                          seq.std)
+        feats = torch.func.functional_call(
+            backbone, state.trainable["params"], (x,))
+        bank = {**state.trainable["heads"],
+                "class_counts": model["heads"]["class_counts"]}
+        return heads.forward(bank, feats, task).cpu()
+
+
+def _finite_tree(tree, what: str, nonneg: bool = False) -> None:
+    """Every leaf of a nested dict of arrays is finite (and >= 0)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _finite_tree(v, what, nonneg)
+        return
+    t = torch.as_tensor(tree)
+    if not torch.isfinite(t).all() or (nonneg and bool((t < 0).any())):
+        raise AssertionError(f"{what}: non-finite"
+                             + (" or negative" if nonneg else "")
+                             + " values")
+
+
+def check_cli_model(manager, model: dict) -> None:
+    """The last task's best model: finite weights, and logits on 64 of its
+    val images on the card equal to the CPU's, within float32
+    summation-order tolerance."""
+    _finite_tree(model["params"], "the best model's weights")
+    seq = manager.dataset
+    images = seq.get_task_dataset(seq.task_count).val.images[:64]
     task = seq.task_count - 1
-    logits = {}
-    for dev in ("cpu", "cuda"):
-        backbone = manager.model_spec.make_backbone().to(dev)
-        state = state_from_model(model, None, dev)
-        with torch.no_grad():
-            x = pp.preprocess(images.to(dev), seq.mean, seq.std)
-            feats = torch.func.functional_call(
-                backbone, state.trainable["params"], (x,))
-            bank = {**state.trainable["heads"],
-                    "class_counts": model["heads"]["class_counts"]}
-            logits[dev] = heads.forward(bank, feats, task).cpu()
+    logits = {dev: _logits_on(manager, model, images, task, dev)
+              for dev in ("cpu", "cuda")}
     diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
     log(f"task {seq.task_count} best model: logits on 64 val images, "
         f"card vs CPU max |diff| {diff:.3g}")
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+FRAMEWORK_MODEL = "small_VGG9_cl_128_128"
+FRAMEWORK_DS = "synthetic_4t_20c_64px_400n"
+FRAMEWORK_METHODS = ("SI", "EWC", "MAS")
+MAX_ATTEMPTS = 2
+LOGITS_TOL = 1e-4  # card vs CPU logits, absolute and relative
+IMPORTANCE_REL_TOL = 1e-3  # card vs CPU Fisher / omega, of its largest entry
+
+
+def phase_framework(root: str, card: str) -> dict:
+    """The per-method timing protocol of the JAX package's
+    ``scripts/run_timing_mode.py``: the SI first-task base-model dump, then
+    SI, EWC and MAS through Phase 1, Phase 2 (at most ``MAX_ATTEMPTS``
+    attempts) and the eval matrix, on the card at full width. Accuracies
+    are not checked (plain SGD at lr 5e-3 without BN is unsteady on this
+    data, so the number of attempts varies); artifacts, shapes, launch
+    counts and card-vs-CPU agreement are. Returns {method: launches}."""
+    from clsurvey_torch.framework import main as cli_main
+    from clsurvey_torch.framework.hyperparam import PHASE_TIMING_FILENAME
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.utils import config, io, paths, timing
+
+    os.environ["CLSURVEY_ROOT"] = root
+    config.set_config(None)
+    common = [FRAMEWORK_MODEL, "--ds_name", FRAMEWORK_DS, "--device", "cuda"]
+    dump = common + ["--method_name", "SI", "--runmode",
+                     "first_task_basemodel_dump", "--num_epochs", "10",
+                     "--batch_size", "200", "--lr_grid", "5e-3",
+                     "--boot_lr_grid", "5e-3"]
+    log("framework: python -m clsurvey_torch.framework.main", " ".join(dump))
+    t0 = time.perf_counter()
+    base_manager = cli_main.cli(dump)
+    torch.cuda.synchronize()
+    log(json.dumps({"framework": "SI dump",
+                    "seconds": time.perf_counter() - t0, "card": card}))
+    base_path = base_manager.best_model_path(1, create=False)
+    _finite_tree(io.load(base_path)["method_aux"]["w"], "the dump's SI w")
+
+    all_launches = {}
+    for method in FRAMEWORK_METHODS:
+        argv = common + ["--method_name", method, "--runmode", "timing_mode",
+                         "--gridsearch_name", "timing_mode",
+                         "--max_attempts_per_task", str(MAX_ATTEMPTS),
+                         "--test"]
+        log("framework: python -m clsurvey_torch.framework.main",
+            " ".join(argv))
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        manager = cli_main.cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches[method] = dict(_kernels.LAUNCHES)
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"kernel {name} never launched in "
+                                     f"{method}'s run")
+        # tasks 2-4: decay state, SUCCESS token, a loadable best model
+        for task in (2, 3, 4):
+            exp_dir = manager.task_training_dir(task, create=False)
+            if not paths.has_success(exp_dir):
+                raise AssertionError(f"{method} task {task}: no SUCCESS "
+                                     f"token in {exp_dir}")
+            hp = io.load(os.path.join(exp_dir,
+                                      paths.HYPERPARAMS_CKPT_FILENAME))
+            failed = int(hp["state"]["attempts"])
+            model = io.load(os.path.join(exp_dir, paths.BEST_MODEL_FILENAME))
+            aux = model["method_aux"]
+            _finite_tree(model["params"], f"{method} task {task} weights")
+            _finite_tree(aux["omega"], f"{method} task {task} omega",
+                         nonneg=True)
+            if method == "SI":
+                _finite_tree(aux["w"], f"SI task {task} w")
+            phases = io.load(os.path.join(
+                manager.task_dir(task, create=False), PHASE_TIMING_FILENAME))
+            prep = io.load(os.path.join(
+                exp_dir, timing.PREPROCESS_TIME_FILENAME))["preprocess_time"]
+            log(json.dumps({
+                "framework": method, "task": task, **phases,
+                "attempts": min(failed + 1, MAX_ATTEMPTS),
+                "lambda": hp["state"]["hyperparams"]["lambda"],
+                "importance_s": prep, "card": card}))
+        # the eval matrix: one reference-shaped dict per ref task
+        out_dir = paths.get_test_results_path(
+            FRAMEWORK_DS, method, FRAMEWORK_MODEL, "timing_mode",
+            manager.exp_name, create=False)
+        matrix = []
+        for i in range(4):
+            res = io.load(os.path.join(
+                out_dir, f"test_method_performances{method}{i}.pth"))[method]
+            series = res["seq_res"][i]
+            if len(series) != 4 - i or len(res["seq_forgetting"][i]) != \
+                    3 - i or not all(0.0 <= a <= 100.0 for a in series):
+                raise AssertionError(f"{method}: malformed result dict "
+                                     f"{i}: {res}")
+            matrix.append(series)
+        log(json.dumps({"framework": method, "seconds": wall,
+                        "launches": launches, "eval_matrix": matrix,
+                        "card": card}))
+        if method == "EWC":
+            check_eval_entry(manager, model, matrix)
+            check_importance(manager, io.load(base_path))
+    return all_launches
+
+
+def check_eval_entry(manager, model: dict, matrix: list) -> None:
+    """Entry (ref task 1, model 4) of the eval matrix again, on the CPU
+    with the plain versions: logits within ``LOGITS_TOL`` of the card's,
+    and the accuracy the matrix holds within one test image."""
+    test = manager.dataset.get_task_dataset(1).test
+    logits = {dev: _logits_on(manager, model, test.images, 0, dev)
+              for dev in ("cpu", "cuda")}
+    diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    acc = float((logits["cpu"].argmax(-1).numpy() == test.labels).mean())
+    log(f"eval entry (ref task 1, model 4): card vs CPU logits max |diff| "
+        f"{diff:.3g} on {len(test.labels)} test images; accuracy "
+        f"{100 * acc:.2f} (CPU) vs {matrix[0][-1]:.2f} (matrix)")
+    torch.testing.assert_close(logits["cuda"], logits["cpu"],
+                               rtol=LOGITS_TOL, atol=LOGITS_TOL)
+    if abs(100 * acc - matrix[0][-1]) > 100.0 / len(test.labels) + 1e-6:
+        raise AssertionError("the eval matrix's entry differs from the "
+                             "CPU's by more than one image")
+
+
+def check_importance(manager, base_model: dict) -> None:
+    """The importance passes of the base model on task 1's first train
+    rows, on the card (kernels A, B1, B2) and on the CPU (plain versions):
+    EWC's Fisher on 400 rows in batches of 200, and MAS's omega on 32 rows
+    in vmapped chunks of ``MAS_CHUNK`` per-sample gradients (the pool's
+    vmap fold). Every entry within ``IMPORTANCE_REL_TOL`` of the largest."""
+    from clsurvey_torch.methods import common
+    from clsurvey_torch.methods.base import UpdateRule
+    from clsurvey_torch.models.convert import params_from_jax
+    from clsurvey_torch.ops import importance
+
+    train = manager.dataset.get_task_dataset(1).train
+    heads = base_model["heads"]
+    passes = {
+        "Fisher on 400 rows": lambda ctx, p: importance.ewc_fisher(
+            ctx, p, {}, heads, 0, train.images[:400], train.labels[:400],
+            200),
+        "MAS omega on 32 rows": lambda ctx, p: importance.mas_importance(
+            ctx, p, {}, heads, 0, train.images[:32], chunk=MAS_CHUNK),
+    }
+    for what, run in passes.items():
+        omega = {}
+        for dev in ("cpu", "cuda"):
+            manager.args.device = dev
+            ctx = common.build_engine(manager, UpdateRule(), 2,
+                                      augment=False).ctx
+            t0 = time.perf_counter()
+            out = run(ctx, params_from_jax(base_model["params"], ctx.device))
+            omega[dev] = {k: v.cpu() for k, v in out.items()}
+            log(f"{what} of the base model, {dev}: "
+                f"{time.perf_counter() - t0:.2f} s")
+        manager.args.device = "cuda"
+        top = max(float(v.max()) for v in omega["cpu"].values())
+        worst = max(float((omega["cuda"][k] - v).abs().max())
+                    for k, v in omega["cpu"].items())
+        log(f"{what}, card vs CPU: max |diff| {worst:.3g}, largest entry "
+            f"{top:.3g}")
+        if not worst <= IMPORTANCE_REL_TOL * top:
+            raise AssertionError(f"{what}: the card differs from the CPU")
 
 
 def phase_protocol(card: str) -> None:
@@ -394,7 +669,20 @@ def phase_protocol(card: str) -> None:
                      "calls": e.count} for e in top]}))
 
 
-def main() -> int:
+PHASES = ("card", "kernels", "cli", "framework", "protocol")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of " + ",".join(PHASES) + " (default: "
+                         "all; the final ok line needs a full run)")
+    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {list(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -402,24 +690,39 @@ def main() -> int:
     import clsurvey_torch  # noqa: F401  (fail before printing anything)
 
     card = card_line()
-    phase_card(card)
-    checks = phase_kernels()
-    with tempfile.TemporaryDirectory() as root:
-        launches = phase_cli(root)
-    phase_protocol(card)
-    sources = {"normalize_flip": "clsurvey_torch/csrc/preprocess.cu",
-               "pool_fwd": "clsurvey_torch/csrc/pool.cu",
-               "pool_bwd": "clsurvey_torch/csrc/pool.cu"}
-    replaces = {"normalize_flip": "clsurvey_tpu/ops/preprocess.py:61",
-                "pool_fwd": "clsurvey_tpu/ops/pool_pallas.py:82",
-                "pool_bwd": "clsurvey_tpu/ops/pool_pallas.py:113"}
-    log(json.dumps({"kernels": [
-        _kernel_row(name, sources[name], replaces[name], checks[name],
-                    launches[name], torch.float32)
-        for name in sources]}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    phase_card(card)  # always: every other phase needs the kernels built
+    checks = launches = fw_launches = None  # None: the phase did not run
+    if "kernels" in phases:
+        checks = phase_kernels()
+    if "cli" in phases:
+        with tempfile.TemporaryDirectory() as root:
+            launches = phase_cli(root)
+    if "framework" in phases:
+        with tempfile.TemporaryDirectory() as root:
+            fw_launches = phase_framework(root, card)
+    if "protocol" in phases:
+        phase_protocol(card)
+    if checks is not None:
+        sources = {"normalize_flip": "clsurvey_torch/csrc/preprocess.cu",
+                   "pool_fwd": "clsurvey_torch/csrc/pool.cu",
+                   "pool_bwd": "clsurvey_torch/csrc/pool.cu"}
+        replaces = {"normalize_flip": "clsurvey_tpu/ops/preprocess.py:61",
+                    "pool_fwd": "clsurvey_tpu/ops/pool_pallas.py:82",
+                    "pool_bwd": "clsurvey_tpu/ops/pool_pallas.py:113"}
+        log(card)
+        log(json.dumps({"kernels": [
+            {**_kernel_row(name, sources[name], replaces[name],
+                           checks[name], launches and launches[name],
+                           torch.float32),
+             "launches_framework": fw_launches and {
+                 m: n[name] for m, n in fw_launches.items()}}
+            for name in sources]}))
+    if set(phases) >= set(PHASES):
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+    else:
+        log("partial run (--phases): no ok line")
     return 0
 
 

@@ -95,7 +95,10 @@ def parse(ds_name: str, **kwargs) -> TaskSequence:
     for key, factory in _REGISTRY.items():
         if ds_name == key or ds_name.startswith(key):
             return factory(ds_name=ds_name, **kwargs)
-    raise NotImplementedError(f"DATASET NOT IMPLEMENTED: {ds_name}")
+    raise NotImplementedError(
+        f"DATASET NOT IMPLEMENTED: {ds_name} (clsurvey_torch has the "
+        f"synthetic_* sequences so far; ROADMAP.md, queue 1, item 2: "
+        f"AlexNet and the datasets)")
 
 
 def merge_tasks(seq: TaskSequence, tasks: Sequence[int]) -> TaskData:

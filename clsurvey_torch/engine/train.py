@@ -136,6 +136,14 @@ class EngineContext:
     def task_logits(self, trainable, feats):
         return heads_lib.forward(self.bank(trainable), feats, self.task)
 
+    def all_logits(self, trainable, feats):
+        return heads_lib.forward_all(self.bank(trainable), feats,
+                                     self.n_tasks)
+
+    def shared_logits(self, trainable, feats):
+        return heads_lib.shared_logits(self.bank(trainable), feats,
+                                       self.n_tasks)
+
     def preprocess(self, images_u8, flip_mask=None):
         """Train-time preprocess in the compute dtype; ``flip_mask`` is
         ignored unless the context augments."""
@@ -189,8 +197,15 @@ class Engine:
         x = ctx.preprocess(x_u8, flip_mask)
         batch = (x, y)
 
-        loss, grads, new_bs, metrics = self._base_loss_and_grads(
-            state.trainable, state.batch_stats, batch, state.mstate)
+        # a rule may take over the gradient computation (GEM's projection
+        # needs per-memory gradients); it is handed the base computation
+        if hasattr(rule, "compute_grads"):
+            loss, grads, new_bs, metrics = rule.compute_grads(
+                ctx, state.trainable, state.batch_stats, batch,
+                state.mstate, self._base_loss_and_grads)
+        else:
+            loss, grads, new_bs, metrics = self._base_loss_and_grads(
+                state.trainable, state.batch_stats, batch, state.mstate)
 
         with torch.no_grad():
             raw_grads = grads
@@ -262,17 +277,37 @@ class Engine:
                        "acc": torch.stack(accs).mean()}
 
     def evaluate(self, trainable, batch_stats, images, labels,
-                 batch_size: int):
-        """Current-task accuracy + per-class counters
-        (ref:src/framework/inference.py:8-87 test_model semantics). Eval
-        preprocess is float32 with no flip, whatever the compute dtype."""
+                 batch_size: int, predict: str | Callable = "task",
+                 target_labels=None, n_counter_classes: int | None = None):
+        """Accuracy + per-class counters (ref:src/framework/inference.py:
+        8-87 test_model semantics). Eval preprocess is float32 with no
+        flip, whatever the compute dtype.
+
+        ``predict``: "task" (current-task head), "shared" (extended shared
+        head over all tasks, rehearsal eval), or a callable
+        ``(ctx, trainable, feats) -> logits``.
+        ``target_labels``: override labels (e.g. offset labels for shared
+        eval). ``n_counter_classes``: length of the per-class counters
+        (default: the head width, times ``n_tasks`` for "shared")."""
         ctx = self.ctx
         n = int(images.shape[0])
         batch_size = min(int(batch_size), n)
-        y_all = torch.as_tensor(labels).to(ctx.device).long()
-        n_classes = int(np.max(ctx.class_counts))
-        pcc = torch.zeros(n_classes, device=ctx.device)
-        pct = torch.zeros(n_classes, device=ctx.device)
+        y_all = torch.as_tensor(labels if target_labels is None
+                                else target_labels).to(ctx.device).long()
+        if n_counter_classes is None:
+            kernel_c = int(np.max(ctx.class_counts))
+            n_counter_classes = (kernel_c * ctx.n_tasks
+                                 if predict == "shared" else kernel_c)
+        if callable(predict):
+            logits_of = lambda feats: predict(ctx, trainable, feats)
+        elif predict == "task":
+            logits_of = lambda feats: ctx.task_logits(trainable, feats)
+        elif predict == "shared":
+            logits_of = lambda feats: ctx.shared_logits(trainable, feats)
+        else:
+            raise ValueError(predict)
+        pcc = torch.zeros(n_counter_classes, device=ctx.device)
+        pct = torch.zeros(n_counter_classes, device=ctx.device)
         with torch.no_grad():
             for lo in range(0, n, batch_size):
                 x = pp.preprocess(images[lo: lo + batch_size], ctx.mean,
@@ -280,8 +315,7 @@ class Engine:
                 y = y_all[lo: lo + batch_size]
                 feats, _ = ctx.forward_feats(trainable["params"],
                                              batch_stats, x, False)
-                logits = ctx.task_logits(trainable, feats)
-                hit = (logits.argmax(-1) == y).to(torch.float32)
+                hit = (logits_of(feats).argmax(-1) == y).to(torch.float32)
                 pcc.index_add_(0, y, hit)
                 pct.index_add_(0, y, torch.ones_like(hit))
         per_class_c, per_class_t = pcc.cpu().numpy(), pct.cpu().numpy()
@@ -378,7 +412,7 @@ def _resident(split_np: np.ndarray, what: str, device) -> torch.Tensor:
             f"{what} split of {split_np.nbytes / 2**20:.0f} MiB is above "
             f"the device data budget of {budget / 2**20:.0f} MiB; streamed "
             f"epochs are not ported to clsurvey_torch yet (ROADMAP.md, "
-            f"queue 1: streaming)")
+            f"queue 1, item 3: streaming)")
     return torch.from_numpy(np.ascontiguousarray(split_np)).to(device)
 
 

@@ -4,13 +4,17 @@ Drives a method over a task sequence: parse method/dataset/model, set up the
 shared first-task base model, then per task dispatch to the LR grid
 (``no_framework`` methods) or the two-phase hyperparameter framework.
 Counterpart of ``clsurvey_tpu/framework/main.py``: the same flags plus
-``--device`` (default ``cuda``). ``--test`` (the eval matrix), ``--profile``
-and methods that need Phase 2 raise ``NotImplementedError`` until their
+``--device`` (default ``cuda``), and ``--test`` runs the eval matrix
+afterwards. Only ``--profile`` raises ``NotImplementedError`` until its
 slice is ported.
 
     python -m clsurvey_torch.framework.main small_VGG9_cl_128_128 \
-        --method_name finetuning --ds_name synthetic_4t_20c_64px_400n \
-        --runmode timing_mode
+        --method_name SI --ds_name synthetic_4t_20c_64px_400n \
+        --runmode first_task_basemodel_dump --num_epochs 10 \
+        --lr_grid 5e-3 --boot_lr_grid 5e-3
+    python -m clsurvey_torch.framework.main small_VGG9_cl_128_128 \
+        --method_name EWC --ds_name synthetic_4t_20c_64px_400n \
+        --runmode timing_mode --gridsearch_name timing_mode --test
 """
 
 from __future__ import annotations
@@ -108,7 +112,7 @@ def overwrite_dump_args(args: RunArgs, manager: Manager) -> None:
 
 def _not_ported(flag: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{flag} is not ported to clsurvey_torch yet (ROADMAP.md, queue 1: "
+        f"{flag} is not ported to clsurvey_torch yet (ROADMAP.md, queue 1, "
         f"{item}); use clsurvey_tpu for it")
 
 
@@ -116,10 +120,8 @@ def main(args: RunArgs):
     rng_lib.set_random(args.seed)
     cfg = load_config()
     device_lib.resolve(args.device)  # no card for "cuda" -> raise now
-    if args.test:
-        raise _not_ported("--test (the eval matrix)", "evaluate.py")
     if args.profile:
-        raise _not_ported("--profile", "profiling")
+        raise _not_ported("--profile", "item 4: profiling")
     args.apply_runmode()
 
     method = methods_lib.parse(args.method_name)
@@ -171,6 +173,15 @@ def main(args: RunArgs):
 
     timer = timing.PhaseTimer()
     task_seconds = manager.extras.setdefault("task_seconds", {})
+    ds_paths, model_paths = [], []
+    # mid-sequence restart: the earlier tasks' models already exist on
+    # disk — seed the eval lists so --test still produces the full
+    # (task x model) matrix (the reference instead requires a follow-up
+    # rerun from task 1 whose SUCCESS flags fast-forward the loop)
+    for done_task in range(1, args.starting_task_count):
+        ds_paths.append(done_task)
+        model_paths.append(resolve_task_model_path(args, manager,
+                                                   done_task))
     for task_counter in range(args.starting_task_count,
                               args.max_task_count + 1):
         print("\n" + "*" * 70 + f"\nTRAINING Task {task_counter}\n" + "*" * 70)
@@ -188,8 +199,9 @@ def main(args: RunArgs):
                         {"phase1": time.time() - p1_start},
                         manager.task_dir())
                 else:
-                    raise _not_ported(f"Phase 2 for {method.name}",
-                                      "hyperparam.py")
+                    hyperparam.framework_single_task(args, manager)
+            ds_paths.append(task_counter)
+            model_paths.append(manager.previous_task_model_path)
             task_seconds[task_counter] = timer.elapsed[f"task_{task_counter}"]
             print(f"[task {task_counter}] host RSS "
                   f"{timing.host_rss_gib():.2f} GiB", flush=True)
@@ -199,6 +211,11 @@ def main(args: RunArgs):
             break
     timer.print_timing()
     timing.print_stats()
+
+    if args.test:
+        from clsurvey_torch.framework import evaluate as test_lib
+        manager.extras["eval_results"] = test_lib.main(
+            args, manager, ds_paths, model_paths)
     return manager
 
 

@@ -1,20 +1,38 @@
 """Method registry (ref:src/methods/method.py:35-78 ``parse``).
 
-This slice ports the two baselines on the main path, ``finetuning`` and
-``joint``; any other name raises."""
+Ported so far: the baselines ``finetuning`` and ``joint``, and the
+importance regularisers ``EWC``, ``MAS`` and ``SI``. Any other name of the
+JAX package raises, naming its ROADMAP item."""
 
 from __future__ import annotations
 
 from clsurvey_torch.methods.base import Category, Method, UpdateRule  # noqa: F401
 
+# method name of the JAX package -> its item in ROADMAP.md, queue 1
+_NOT_PORTED = {
+    "LWF": "item 6: distillation", "EBLL": "item 6: distillation",
+    "GEM": "item 7: rehearsal", "ICARL": "item 7: rehearsal",
+    "finetuning_rehearsal_full_mem": "item 7: rehearsal",
+    "finetuning_rehearsal_partial_mem": "item 7: rehearsal",
+    "packnet": "item 8: PackNet", "HAT": "item 9: HAT",
+    "pathnet": "item 10: PathNet",
+}
+
 
 def parse(method_name: str) -> Method:
     """String -> Method object."""
     from clsurvey_torch.methods.finetune import Finetune, Joint
+    from clsurvey_torch.methods.reg_based import EWC, MAS, SI
 
-    exact = {Finetune().name: Finetune, Joint().name: Joint}
+    exact = {Finetune().name: Finetune, Joint().name: Joint,
+             "EWC": EWC, "MAS": MAS, "SI": SI}
     if method_name in exact:
         return exact[method_name]()
+    item = _NOT_PORTED.get(method_name)
+    if item is None and "IMM" in method_name:
+        item = "item 5: IMM"
+    if item is None:
+        raise NotImplementedError(f"Method not yet parseable: {method_name}")
     raise NotImplementedError(
-        f"method {method_name} is not ported to clsurvey_torch (ROADMAP.md, "
-        f"queue 1: the methods); use clsurvey_tpu for it")
+        f"method {method_name} is not ported to clsurvey_torch yet "
+        f"(ROADMAP.md, queue 1, {item}); use clsurvey_tpu for it")

@@ -7,10 +7,13 @@ ref:src/methods/Finetune/main_SGD.py:13-82), factored once."""
 
 from __future__ import annotations
 
+from typing import Any
+
 import numpy as np
+import torch
 
 from clsurvey_torch.engine.train import (
-    Engine, TrainJob, TrainState, make_context, train_task,
+    Engine, TrainJob, TrainState, make_context, train_task, tree_map,
     tree_zeros_like, trainable_from_host, tree_to_device)
 from clsurvey_torch.methods.base import UpdateRule
 from clsurvey_torch.models import heads as heads_lib
@@ -61,8 +64,13 @@ def rebuild_head_bank(old_bank: dict, head_gen, n_tasks: int,
 
 
 def build_engine(manager, update_rule: UpdateRule, task_counter: int,
-                 class_counts=None, n_tasks: int | None = None) -> Engine:
+                 augment: bool = True, class_counts=None,
+                 n_tasks: int | None = None,
+                 l1_decay: bool = False) -> Engine:
     """EngineContext from framework state. ``task_counter`` is 1-based."""
+    # global --no_augment gate (parity runs); method-level augment=False
+    # (eval, Fisher sweeps) always wins
+    augment = augment and getattr(manager.args, "augment", True)
     seq = manager.dataset
     counts = class_counts
     if counts is None:
@@ -77,23 +85,28 @@ def build_engine(manager, update_rule: UpdateRule, task_counter: int,
         mean=seq.mean, std=seq.std,
         update_rule=update_rule,
         device=manager.args.device,
-        augment=manager.args.augment,  # --no_augment for parity runs
+        augment=augment,
         weight_decay=manager.args.weight_decay,
+        l1_decay=l1_decay,
     )
     return Engine(ctx)
 
 
 def run_training(manager, update_rule: UpdateRule, lr: float,
                  hyperparams: dict, exp_dir: str, start_model,
-                 seed: int = 7, task_data=None, class_counts=None,
-                 n_tasks: int | None = None):
+                 seed: int = 7, task_data=None, mstate: Any = None,
+                 class_counts=None, n_tasks: int | None = None,
+                 engine: Engine | None = None, l1_decay: bool = False):
     """One full task training: the engine-driven equivalent of each
-    reference method-main. Returns (best_model_dict, best_val_acc,
-    final_state, engine)."""
+    reference method-main. ``mstate`` is a ready method state (else the
+    rule builds one); ``engine`` is reused if given. Returns
+    (best_model_dict, best_val_acc, final_state, engine)."""
     args = manager.args
     model = load_model(start_model)
-    engine = build_engine(manager, update_rule, manager.task_counter,
-                          class_counts=class_counts, n_tasks=n_tasks)
+    if engine is None:
+        engine = build_engine(manager, update_rule, manager.task_counter,
+                              class_counts=class_counts, n_tasks=n_tasks,
+                              l1_decay=l1_decay)
     ctx = engine.ctx
     head_gen = rng_lib.generator(seed, 17)
     # If the needed head width differs from the stored bank (e.g. Joint's
@@ -108,7 +121,8 @@ def run_training(manager, update_rule: UpdateRule, lr: float,
             model["heads"], head_gen, ctx.n_tasks,
             np.asarray(ctx.class_counts))
     trainable = prepare_trainable(model, ctx.task, ctx.device, head_gen)
-    mstate = update_rule.init_state(trainable, hyperparams, ctx)
+    if mstate is None:
+        mstate = update_rule.init_state(trainable, hyperparams, ctx)
     batch_stats = tree_to_device(model.get("batch_stats", {}), ctx.device)
     state = TrainState(trainable, batch_stats, tree_zeros_like(trainable),
                        mstate)
@@ -125,3 +139,27 @@ def run_training(manager, update_rule: UpdateRule, lr: float,
     best_model, best_acc, final_state = train_task(
         engine, job, state, data, log=manager.log)
     return best_model, best_acc, final_state, engine
+
+
+def current_task_head_grads(tree, task: int):
+    """Zero every head-bank slot's gradient except the current task's
+    (the shared 'only the current task's head trains' rule)."""
+    def per_leaf(h):
+        out = torch.zeros_like(h)
+        out[task] = h[task]
+        return out
+
+    return tree_map(per_leaf, tree)
+
+
+def get_task_engine(manager, slot: str):
+    """Single engine slot per method, overwritten across tasks, so a
+    finished task's engine (its backbone module) is not kept alive."""
+    if manager.extras.get(slot + "_task") == manager.task_counter:
+        return manager.extras.get(slot)
+    return None
+
+
+def set_task_engine(manager, slot: str, engine) -> None:
+    manager.extras[slot] = engine
+    manager.extras[slot + "_task"] = manager.task_counter

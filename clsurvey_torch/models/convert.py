@@ -7,7 +7,11 @@ either package loads in the other. In the port the same weights are a flat
 ``{'features.conv_<i>.weight': OIHW, ..., 'trunk.fc_<j>.weight': (out, in),
 ...}`` dict of tensors, the backbone module's parameter names. ``fc_0``'s
 rows need no permutation: both packages flatten NHWC, channels fastest.
-Conv weights are made channels_last, the layout the convs run in."""
+Conv weights are made channels_last, the layout the convs run in.
+
+Both functions take any tree shaped like the backbone's weights: a method's
+importance trees (``omega``, ``theta_star``, SI's ``w``) travel inside a
+model's ``method_aux`` through them, in the same layouts as the weights."""
 
 from __future__ import annotations
 

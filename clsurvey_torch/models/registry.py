@@ -32,7 +32,7 @@ class ModelRegularization:
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to clsurvey_torch yet (ROADMAP.md, queue 1: "
+        f"{what} is not ported to clsurvey_torch yet (ROADMAP.md, queue 1, "
         f"{item}); use clsurvey_tpu for it")
 
 
@@ -79,13 +79,13 @@ def parse_model_name(models_root_path: str, model_name: str,
     """String -> ModelSpec (ref:src/models/net.py:15-36)."""
     segs = model_name.split("_")
     if "alexnet" in model_name:
-        raise _not_ported(model_name, "AlexNet")
+        raise _not_ported(model_name, "item 2: AlexNet")
     if ModelRegularization.batchnorm in segs \
             or ModelRegularization.dropout in segs:
         # BN needs care: flax updates the running variance with the
         # biased batch variance at momentum 0.9, torch's BatchNorm2d with
         # the unbiased one
-        raise _not_ported(model_name, "_BN/_DROP variants")
+        raise _not_ported(model_name, "item 1: _BN/_DROP variants")
     for cfg in ("small_VGG9", "wide_VGG9", "deep_VGG22", "base_VGG9",
                 "tiny_CNN", "19normal", "16normal", "11normal"):
         if cfg in model_name:

@@ -35,6 +35,8 @@ SIGNATURES = {
     "preprocess": {
         "clsurvey_normalize_flip": (_P, _P, _P, _L, _I, _I, _I,
                                     _F, _F, _F, _F, _F, _F, _P),
+        # an empty kernel, for reading a launch's floor; not counted
+        "clsurvey_empty_launch": (_I, _I, _P),
     },
     "pool": {
         "clsurvey_pool_fwd": (_P, _P, _P, _L, _I, _I, _I, _I, _P),

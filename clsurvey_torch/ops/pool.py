@@ -119,22 +119,74 @@ def pool_bwd(g: torch.Tensor, code: torch.Tensor, x_shape) -> torch.Tensor:
     return pool_bwd_plain(g, code, x_shape)
 
 
+def _fold(t: torch.Tensor, dim: int | None, v: int) -> torch.Tensor:
+    """A vmapped operand ``(.., V at dim, ..)`` -> ``(V*B, H, W, C)``: the
+    pool is independent per sample, so the vmapped dimension folds into the
+    batch. An operand that is not batched (``dim`` None) is repeated."""
+    t = t.unsqueeze(0).expand(v, *t.shape) if dim is None \
+        else t.movedim(dim, 0)
+    return t.reshape(v * t.shape[1], *t.shape[2:]).contiguous()
+
+
+class MaxPool2x2Backward(torch.autograd.Function):
+    """Kernel B2 as a function of its own, so that the backward of
+    :class:`MaxPool2x2` also runs under ``torch.func`` transforms (its
+    ``vmap`` is the only place that sees real tensors there)."""
+
+    @staticmethod
+    def forward(g, code, x_shape):
+        return pool_bwd(g.contiguous(), code, x_shape)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, gg):
+        raise NotImplementedError(
+            "pool2x2 is differentiable once: no double backward")
+
+    @staticmethod
+    def vmap(info, in_dims, g, code, x_shape):
+        v = info.batch_size
+        dx = pool_bwd(_fold(g, in_dims[0], v), _fold(code, in_dims[1], v),
+                      (v * x_shape[0], *x_shape[1:]))
+        return dx.view(v, *x_shape), 0
+
+
 class MaxPool2x2(torch.autograd.Function):
-    """The forward / backward pair, joined for autograd."""
+    """The forward / backward pair, joined for autograd and for
+    ``torch.func.vmap`` / ``grad`` (per-sample gradients): under ``vmap``
+    one launch of B1 or B2 handles the folded ``(V*B, H, W, C)`` batch."""
 
     @staticmethod
-    def forward(ctx, x):
-        val, code = pool_fwd(x)
+    def forward(x):
+        return pool_fwd(x)  # (values, codes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, code = output
+        ctx.mark_non_differentiable(code)
+        # or every backward is handed a zero tensor shaped like the codes
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(code)
-        ctx.x_shape = tuple(x.shape)
-        return val
+        ctx.x_shape = tuple(inputs[0].shape)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_code):
+        if g is None:
+            return None
         (code,) = ctx.saved_tensors
-        return pool_bwd(g.contiguous(), code, ctx.x_shape)
+        return MaxPool2x2Backward.apply(g, code, ctx.x_shape)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        v = info.batch_size
+        val, code = pool_fwd(_fold(x, in_dims[0], v))
+        shape = (v, val.shape[0] // v, *val.shape[1:])
+        return (val.view(shape), code.view(shape)), (0, 0)
 
 
 def pool2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max-pool of an NHWC tensor, differentiable."""
-    return MaxPool2x2.apply(x)
+    return MaxPool2x2.apply(x)[0]

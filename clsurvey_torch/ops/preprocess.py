@@ -5,7 +5,11 @@ the device as uint8; each batch is normalized (``x * 1/(255*std) -
 mean/std`` per channel) and, for training, flipped horizontally per sample.
 On a CUDA tensor :func:`preprocess` launches kernel A
 (``csrc/preprocess.cu``), which does both in one pass; on a CPU tensor it
-runs the plain PyTorch version :func:`normalize_flip_plain`.
+runs the plain PyTorch version :func:`normalize_flip_plain`. Kernel A is
+two kernels behind one C entry point, which picks by shape and alignment:
+16-byte output chunks per thread, coalesced across a warp, where the row
+width is a multiple of 8 and the pointers are 16-byte aligned, one pixel
+per thread otherwise.
 
 The flip mask is an argument, drawn by the caller from a
 ``torch.Generator``: torch cannot reproduce the JAX package's

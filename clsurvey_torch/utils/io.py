@@ -56,6 +56,15 @@ def save(obj: Any, path: str) -> str:
         obj, f, protocol=pickle.HIGHEST_PROTOCOL))
 
 
+def save_compat(obj: Any, path: str) -> str:
+    """Write a reference-pipeline-compatible artifact in ``torch.save``
+    format: the reference's postprocessing loads eval result dicts and
+    hyperparams.pth.tar with ``torch.load``, which cannot read plain
+    pickles (ref:src/framework/eval.py:176-185, framework_train.py:58-64)."""
+    obj = to_host(obj)
+    return _atomic_write(path, lambda f: torch.save(obj, f))
+
+
 def load(path: str) -> Any:
     with open(path, "rb") as f:
         head = f.read(4)

@@ -17,6 +17,7 @@ import torch
 from clsurvey_torch.utils import io
 
 MEM_FILENAME = "mem_req.pth.tar"  # reference: cuda_mem_req.pth.tar
+PREPROCESS_TIME_FILENAME = "preprocess_time.pth.tar"
 
 
 class PhaseTimer:
@@ -60,6 +61,12 @@ def device_memory_stats() -> dict[str, Any]:
 def save_mem_req(exp_dir: str) -> None:
     """ref:src/utilities/utils.py:85-97 — pickle memory stats next to model."""
     io.save(device_memory_stats(), f"{exp_dir}/{MEM_FILENAME}")
+
+
+def save_preprocessing_time(exp_dir: str, seconds: float) -> None:
+    """ref:src/utilities/utils.py:100-105."""
+    io.save({"preprocess_time": seconds},
+            f"{exp_dir}/{PREPROCESS_TIME_FILENAME}")
 
 
 def host_rss_gib() -> float:

@@ -8,8 +8,13 @@ import boundary.
   val accuracy the port recorded (within one val sample);
 - importing every ``clsurvey_torch`` module loads no JAX, flax, optax or
   ``clsurvey_tpu`` module;
-- asking for ``cuda`` without a card raises, and the flags of later slices
-  raise ``NotImplementedError``."""
+- the SI first-task base-model dump followed by ``EWC ... --test`` (and MAS,
+  SI) on ``--device cpu``, two tasks: the decay state, the SUCCESS token,
+  best models with ``method_aux`` in the JAX layout, the result dicts, and
+  a tree that both ``postprocessing`` modules read; the JAX CLI continues
+  from the port's base model;
+- asking for ``cuda`` without a card raises, and what is not ported yet
+  raises ``NotImplementedError`` naming its ROADMAP item."""
 
 import os
 import subprocess
@@ -22,12 +27,14 @@ import pytest
 import torch
 
 from clsurvey_torch.framework import main as tmain
-from clsurvey_torch.utils import config as tconfig
+from clsurvey_torch.utilities import postprocessing as tpost
+from clsurvey_torch.utils import config as tconfig, paths as tpaths
 from clsurvey_tpu.data import registry as jdata
 from clsurvey_tpu.framework.common import RunArgs as JRunArgs
 from clsurvey_tpu.framework.main import main as jmain
 from clsurvey_tpu.models import heads as jheads, registry as jreg
 from clsurvey_tpu.ops import preprocess as jpp
+from clsurvey_tpu.utilities import postprocessing as jpost
 from clsurvey_tpu.utils import config as jconfig, io as jio
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,11 +127,123 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--test"], "evaluate.py"), (["--profile"], "profiling"),
-    (["--method_name", "EWC"], "methods")])
+    (["--profile"], "item 4: profiling"),
+    (["--method_name", "LWF"], "item 6: distillation"),
+    (["--method_name", "mode_IMM"], "item 5: IMM"),
+    (["--ds_name", "tiny"], "item 2: AlexNet and the datasets")])
 def test_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         tmain.cli(ARGV + ["--device", "cpu"] + extra)
+
+
+REG_ARGV = [ARGV[0], "--ds_name", "synthetic_2t_4c_32px", "--num_epochs", "2",
+            "--batch_size", "32", "--lr_grid", "1e-2", "--boot_lr_grid",
+            "1e-2", "--device", "cpu"]
+
+
+@pytest.fixture()
+def port_root_with_si_dump(two_roots):
+    use, _, port_root = two_roots
+    use(port_root)
+    manager = tmain.cli(REG_ARGV + ["--method_name", "SI", "--runmode",
+                                    "first_task_basemodel_dump"])
+    return use, port_root, manager.best_model_path(1, create=False)
+
+
+def test_si_dump_then_ewc_with_test(port_root_with_si_dump, capsys):
+    use, port_root, base_path = port_root_with_si_dump
+    base = jio.load(base_path)
+    assert set(base["method_aux"]) == {"omega", "theta_star", "w"}
+    assert np.abs(base["method_aux"]["w"]["features"]["conv_0"]["kernel"]
+                  ).max() > 0  # the path integral ran during task 1
+    # a second dump refuses to overwrite
+    capsys.readouterr()
+    tmain.cli(REG_ARGV + ["--method_name", "SI", "--runmode",
+                          "first_task_basemodel_dump"])
+    assert "refusing overwrite" in capsys.readouterr().out
+
+    manager = tmain.cli(REG_ARGV + [
+        "--method_name", "EWC", "--max_attempts_per_task", "2", "--test"])
+    assert "USING SI AS MODEL FOR FIRST TASK" in capsys.readouterr().out
+    exp_dir = manager.task_training_dir(2, create=False)
+    assert tpaths.has_success(exp_dir) and not os.path.islink(exp_dir)
+    ck = torch.load(os.path.join(exp_dir, "hyperparams.pth.tar"),
+                    weights_only=False)
+    assert set(ck) == {"acc_threshold", "val_acc", "state"}
+    assert ck["state"]["attempts"] in (0, 1, 2)
+    assert ck["state"]["hyperparams"]["lambda"] == \
+        400 * 0.5 ** ck["state"]["attempts"]
+    for fn in ("best_model.pth.tar", "preprocess_time.pth.tar"):
+        assert os.path.isfile(os.path.join(exp_dir, fn))
+    assert sorted(jio.load(os.path.join(
+        manager.task_dir(2, create=False), "phase_timing.pth.tar"))) == (
+            ["convergence_iteration", "phase1", "postprocess", "presteps"]
+            if ck["state"]["attempts"] < 2 else
+            ["phase1", "postprocess", "presteps"])
+    # the best model carries omega and theta_star in the JAX layout:
+    # theta_star is the base model's weights, omega its Fisher (>= 0)
+    model = jio.load(os.path.join(exp_dir, "best_model.pth.tar"))
+    aux = model["method_aux"]
+    assert set(aux) == {"omega", "theta_star"}
+    for group, layers in base["params"].items():
+        for layer, leaves in layers.items():
+            for leaf, value in leaves.items():
+                np.testing.assert_array_equal(
+                    aux["theta_star"][group][layer][leaf], value)
+                om = aux["omega"][group][layer][leaf]
+                assert om.shape == value.shape and (om >= 0).all()
+    assert aux["omega"]["features"]["conv_0"]["kernel"].max() > 0
+
+    # the eval matrix: model 1 is the shared SI model
+    res = manager.extras["eval_results"]
+    assert [len(r["seq_res"]) for r in res] == [2, 1]
+    test_root = os.path.join(str(port_root), "results", "test")
+    for lib in (jpost, tpost):
+        (entry,) = lib.collect_gridsearch_exp_entries(
+            test_root, "synthetic_2t_4c_32px", "EWC", ARGV[0], "demo")
+        assert entry.task_count == 2 and sorted(entry.seq_acc) == [1, 2]
+        counts = lib.collect_hyperparams(entry, "EWC")
+        assert entry.hyperparams["lambda"] == [
+            ck["state"]["hyperparams"]["lambda"]]
+        assert counts["lambda"] == 1
+        assert "lambda" in lib.print_hyperparam_table([entry])
+
+
+@pytest.mark.parametrize("method", ["MAS", "SI"])
+def test_si_dump_then_mas_and_si(port_root_with_si_dump, method):
+    _, port_root, _ = port_root_with_si_dump
+    manager = tmain.cli(REG_ARGV + [
+        "--method_name", method, "--max_attempts_per_task", "1", "--test"])
+    exp_dir = manager.task_training_dir(2, create=False)
+    assert tpaths.has_success(exp_dir)
+    aux = jio.load(os.path.join(exp_dir, "best_model.pth.tar"))["method_aux"]
+    assert set(aux) == ({"omega", "theta_star", "w"} if method == "SI"
+                        else {"omega", "theta_star"})
+    for tree in aux.values():
+        for layers in tree.values():
+            for leaves in layers.values():
+                assert all(np.isfinite(v).all() for v in leaves.values())
+    assert [len(r["seq_res"]) for r in manager.extras["eval_results"]] \
+        == [2, 1]
+
+
+def test_the_jax_cli_continues_from_the_ports_si_dump(
+        port_root_with_si_dump):
+    """A base model written by the port (``method_aux`` through
+    ``models/convert.py``) is what the JAX package's SI consolidates."""
+    use, port_root, base_path = port_root_with_si_dump
+    manager = jmain(JRunArgs(
+        model_name=ARGV[0], ds_name="synthetic_2t_4c_32px",
+        method_name="SI", num_epochs=2, batch_size=32, lr_grid=(1e-2,),
+        boot_lr_grid=(1e-2,), max_attempts_per_task=1))
+    assert manager.previous_task_model_path.endswith(
+        os.path.join("task_2", "TASK_TRAINING", "best_model.pth.tar"))
+    aux = jio.load(manager.previous_task_model_path)["method_aux"]
+    base = jio.load(base_path)
+    np.testing.assert_array_equal(
+        aux["theta_star"]["trunk"]["fc_0"]["kernel"],
+        base["params"]["trunk"]["fc_0"]["kernel"])
+    assert np.isfinite(aux["omega"]["trunk"]["fc_0"]["kernel"]).all()
 
 
 def test_joint_trains_one_merged_head(two_roots):

@@ -9,9 +9,13 @@ machine with one, run them with
 need not have; nothing here uses it.)
 
 - kernel A (normalize + flip): bfloat16 bit-equal; float32 within 1 ulp
-  (both sides round the product, then the difference; no FMA);
+  (both sides round the product, then the difference; no FMA), through its
+  vector kernel (width a multiple of 8), its scalar kernel (any width, a
+  pointer that is not 16-byte aligned) and the two against each other;
 - kernels B1/B2 (pool forward / backward): bit-equal values, codes and dx,
   float32 and bfloat16, tie-heavy inputs, even and odd sizes;
+- the pool pair under ``torch.func.vmap(grad)``: one launch each, equal to
+  a per-sample loop;
 - the backbone on the card against the same backbone on the CPU."""
 
 import numpy as np
@@ -38,7 +42,9 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(200, 64, 64, 3), (5, 7, 9, 3)])
+@pytest.mark.parametrize("shape", [(200, 64, 64, 3), (5, 7, 9, 3),
+                                   (3, 5, 8, 3), (7, 33, 24, 3),
+                                   (2, 64, 60, 3)])
 def test_preprocess_kernel_matches_plain(cuda, dtype, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda,
@@ -56,6 +62,42 @@ def test_preprocess_kernel_matches_plain(cuda, dtype, shape):
                    - want).abs()
             assert bool(((got - want).abs() <= ulp).all())
     assert _kernels.LAUNCHES["normalize_flip"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_preprocess_vector_and_scalar_kernels_agree(cuda, dtype):
+    """The vector kernel (aligned, width % 8 == 0) and the scalar kernel
+    at the same shape (the route an unaligned pointer takes): bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape = (9, 16, 24, 3)
+    aligned = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda,
+                            generator=gen)
+    flat = torch.empty(aligned.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(shape)
+    shifted.copy_(aligned)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 1
+    flip = torch.randint(0, 2, (shape[0],), dtype=torch.uint8, device=cuda,
+                         generator=gen)
+    for mask in (flip, None):
+        assert torch.equal(pp.preprocess(aligned, MEAN, STD, mask, dtype),
+                           pp.preprocess(shifted, MEAN, STD, mask, dtype))
+
+
+def test_pool_under_vmap_grad_is_one_launch_each(cuda):
+    x = torch.randint(0, 3, (16, 1, 8, 8, 64), device=cuda).float()
+    w = torch.randn(64, device=cuda)
+
+    def f(w_, x1):
+        return (pool.pool2x2(x1 * w_) ** 2).sum()
+
+    before = dict(_kernels.LAUNCHES)
+    got = torch.func.vmap(torch.func.grad(f), in_dims=(None, 0))(w, x)
+    assert _kernels.LAUNCHES["pool_fwd"] == before["pool_fwd"] + 1
+    assert _kernels.LAUNCHES["pool_bwd"] == before["pool_bwd"] + 1
+    loop = torch.stack([torch.autograd.grad(
+        f(wr := w.clone().requires_grad_(), x[i]), wr)[0]
+        for i in range(x.shape[0])])
+    torch.testing.assert_close(got, loop, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -11,7 +11,10 @@ versions), on the same numpy-made inputs.
   two differ by up to half an ulp of the product plus one ulp of the
   result, which is the float32 tolerance there;
 - pool forward and VJP vs ``pool_pallas.maxpool2x2`` (interpret mode) and
-  ``reduce_window``: exact, float32 and bfloat16, tie-heavy inputs."""
+  ``reduce_window``: exact, float32 and bfloat16, tie-heavy inputs;
+- ``torch.func.vmap(grad)`` through ``pool2x2`` (per-sample gradients, as
+  MAS takes them): equal to a per-sample loop, and to ``jax.vmap(grad)``
+  through the JAX pool within 1e-6."""
 
 import jax
 import jax.numpy as jnp
@@ -156,6 +159,79 @@ def test_pool_codes_follow_window_order():
         x = torch.tensor([[a, b], [d, e]], dtype=torch.float32)
         val, got = pool.pool_fwd(x.view(1, 2, 2, 1))
         assert int(got) == code and float(val) == max(a, b, d, e)
+
+
+def _two_pools(w, x1):
+    """A scalar function of one sample through two pools."""
+    return (pool.pool2x2(pool.pool2x2(x1[None] * w) * w) ** 2).sum()
+
+
+@pytest.mark.parametrize("in_dim", [0, 1], ids=["leading", "inner"])
+def test_vmap_grad_through_pool_equals_a_per_sample_loop(in_dim):
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 3, (5, 8, 8, 4)).astype(np.float32)  # ties
+    w = rng.normal(0, 1, (4,)).astype(np.float32)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    stacked = xt if in_dim == 0 else xt.movedim(0, 1)
+    for argnum in (0, 1):  # gradient wrt the shared weight, wrt the sample
+        got = torch.func.vmap(torch.func.grad(_two_pools, argnums=argnum),
+                              in_dims=(None, in_dim))(wt, stacked)
+        loop = []
+        for i in range(x.shape[0]):
+            args = [wt.clone(), xt[i].clone()]
+            args[argnum].requires_grad_()
+            (g,) = torch.autograd.grad(_two_pools(*args), args[argnum])
+            loop.append(g)
+        assert torch.equal(got, torch.stack(loop))
+
+    def jax_two_pools(w_, x1):
+        y = pool_pallas.maxpool2x2(x1[None] * w_) * w_
+        return jnp.sum(pool_pallas.maxpool2x2(y) ** 2)
+
+    want = jax.vmap(jax.grad(jax_two_pools), in_axes=(None, 0))(
+        jnp.asarray(w), jnp.asarray(x))
+    got = torch.func.vmap(torch.func.grad(_two_pools),
+                          in_dims=(None, 0))(wt, xt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_vmapped_pool_folds_into_one_batch(monkeypatch):
+    """Under vmap the pool pair is called once each, on (V*B, H, W, C)."""
+    seen = []
+    fwd, bwd = pool.pool_fwd, pool.pool_bwd
+    monkeypatch.setattr(pool, "pool_fwd",
+                        lambda x: seen.append(("fwd", tuple(x.shape)))
+                        or fwd(x))
+    monkeypatch.setattr(pool, "pool_bwd",
+                        lambda g, c, s: seen.append(("bwd", tuple(s)))
+                        or bwd(g, c, s))
+    x = torch.randn(6, 2, 4, 4, 3)
+    torch.func.vmap(torch.func.grad(lambda x1: pool.pool2x2(x1).sum()))(x)
+    assert seen == [("fwd", (12, 4, 4, 3)), ("bwd", (12, 4, 4, 3))]
+
+
+def test_pool_backward_is_handed_no_zero_tensor_for_the_codes(monkeypatch):
+    """The codes are a non-differentiable second output; autograd must not
+    fill a zero tensor shaped like them for every backward (on the card
+    that is one more device launch per pool and step)."""
+    seen = []
+    backward = pool.MaxPool2x2.backward
+    monkeypatch.setattr(
+        pool.MaxPool2x2, "backward",
+        staticmethod(lambda ctx, g, g_code: seen.append(g_code)
+                     or backward(ctx, g, g_code)))
+    x = torch.randn(2, 4, 4, 3, requires_grad=True)
+    pool.pool2x2(x).sum().backward()
+    assert seen == [None] and x.grad.shape == x.shape
+
+
+def test_pool_is_differentiable_once():
+    x = torch.randn(1, 4, 4, 2, requires_grad=True)
+    (dx,) = torch.autograd.grad((pool.pool2x2(x) ** 2).sum(), x,
+                                create_graph=True)
+    with pytest.raises(NotImplementedError, match="double backward"):
+        dx.sum().backward()
 
 
 def test_cpu_tensors_take_the_plain_versions():
