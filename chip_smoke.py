@@ -22,18 +22,29 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    launch counters zeroed just before and read just after; every kernel
    must have launched, every task must have left a best model that
    ``clsurvey_torch.utils.io.load`` reads back;
-4. framework: the SI first-task base-model dump, then SI, EWC and MAS
-   through Phase 1, Phase 2 and ``--test`` under timing_mode, counters
-   zeroed before each method; checks the decay state, SUCCESS tokens, best
-   models with their importance trees, the result dicts, and one eval
-   entry, EWC's Fisher and MAS's omega on the card against the CPU;
-5. protocol: bench.py's throughput point (20k random uint8 rows, batch
+4. framework: after the SI first-task base-model dump (made once, for
+   this phase and the next), SI, EWC and MAS through Phase 1, Phase 2 and
+   ``--test`` under timing_mode, counters zeroed before each method;
+   checks the decay state, SUCCESS tokens, best models with their
+   importance trees, the result dicts, and one eval entry, EWC's Fisher
+   and MAS's omega on the card against the CPU;
+5. methods: from that base model, LWF and EBLL (collapsed autoencoder
+   grid) through both phases and ``--test``, mean_IMM and mode_IMM through
+   Phase 1 and the eval-time merges, and finetuning on
+   small_VGG9_cl_128_128_BN_DROP, counters zeroed before each; checks the
+   encoders in EBLL's models, the merged models and precision caches, the
+   batch-norm statistics, the result dicts, and one distillation value and
+   one mode-IMM Fisher on the card against the CPU;
+6. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
 
-The line before the last is the ``{"kernels": [...]}`` record (in a
-partial run its launch counts are null for the phases that did not run);
-the last line is ``{"ok": true, "device": {...}}``.
+Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
+before the last is the ``{"kernels": [...]}`` record: ``launches``
+is the count of the ``cli`` run, ``launches_framework`` and
+``launches_methods`` hold each method's own count (in a partial run the
+counts are null for the phases that did not run); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -396,7 +407,8 @@ def _logits_on(manager, model: dict, images, task: int, dev: str):
         x = pp.preprocess(torch.as_tensor(images).to(dev), seq.mean,
                           seq.std)
         feats = torch.func.functional_call(
-            backbone, state.trainable["params"], (x,))
+            backbone, state.trainable["params"], (x,),
+            {"batch_stats": state.batch_stats})
         bank = {**state.trainable["heads"],
                 "class_counts": model["heads"]["class_counts"]}
         return heads.forward(bank, feats, task).cpu()
@@ -440,26 +452,22 @@ LOGITS_TOL = 1e-4  # card vs CPU logits, absolute and relative
 IMPORTANCE_REL_TOL = 1e-3  # card vs CPU Fisher / omega, of its largest entry
 
 
-def phase_framework(root: str, card: str) -> dict:
-    """The per-method timing protocol of the JAX package's
-    ``scripts/run_timing_mode.py``: the SI first-task base-model dump, then
-    SI, EWC and MAS through Phase 1, Phase 2 (at most ``MAX_ATTEMPTS``
-    attempts) and the eval matrix, on the card at full width. Accuracies
-    are not checked (plain SGD at lr 5e-3 without BN is unsteady on this
-    data, so the number of attempts varies); artifacts, shapes, launch
-    counts and card-vs-CPU agreement are. Returns {method: launches}."""
+def _framework_common() -> list:
+    return [FRAMEWORK_MODEL, "--ds_name", FRAMEWORK_DS, "--device", "cuda"]
+
+
+def si_base_model(root: str, card: str) -> str:
+    """Dumps the SI first-task base model under ``root`` through the CLI,
+    once for the ``framework`` and ``methods`` phases; returns its path."""
     from clsurvey_torch.framework import main as cli_main
-    from clsurvey_torch.framework.hyperparam import PHASE_TIMING_FILENAME
-    from clsurvey_torch.ops import _kernels
-    from clsurvey_torch.utils import config, io, paths, timing
+    from clsurvey_torch.utils import config, io
 
     os.environ["CLSURVEY_ROOT"] = root
     config.set_config(None)
-    common = [FRAMEWORK_MODEL, "--ds_name", FRAMEWORK_DS, "--device", "cuda"]
-    dump = common + ["--method_name", "SI", "--runmode",
-                     "first_task_basemodel_dump", "--num_epochs", "10",
-                     "--batch_size", "200", "--lr_grid", "5e-3",
-                     "--boot_lr_grid", "5e-3"]
+    dump = _framework_common() + [
+        "--method_name", "SI", "--runmode", "first_task_basemodel_dump",
+        "--num_epochs", "10", "--batch_size", "200", "--lr_grid", "5e-3",
+        "--boot_lr_grid", "5e-3"]
     log("framework: python -m clsurvey_torch.framework.main", " ".join(dump))
     t0 = time.perf_counter()
     base_manager = cli_main.cli(dump)
@@ -468,64 +476,105 @@ def phase_framework(root: str, card: str) -> dict:
                     "seconds": time.perf_counter() - t0, "card": card}))
     base_path = base_manager.best_model_path(1, create=False)
     _finite_tree(io.load(base_path)["method_aux"]["w"], "the dump's SI w")
+    return base_path
+
+
+def run_method(method: str, extra: list, model: str = FRAMEWORK_MODEL):
+    """One method through the timing_mode CLI with ``--test``, the launch
+    counters zeroed just before and read just after; every kernel must
+    have launched. Returns (manager, launches, wall seconds)."""
+    from clsurvey_torch.framework import main as cli_main
+    from clsurvey_torch.ops import _kernels
+
+    argv = [model] + _framework_common()[1:] + [
+        "--method_name", method, "--runmode", "timing_mode",
+        "--gridsearch_name", "timing_mode", "--test"] + extra
+    log("framework: python -m clsurvey_torch.framework.main", " ".join(argv))
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    manager = cli_main.cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched in "
+                                 f"{method}'s run")
+    return manager, launches, wall
+
+
+def eval_matrix(manager, model: str = FRAMEWORK_MODEL) -> list:
+    """The run's result dicts, one reference-shaped dict per ref task: 10
+    entries in all for 4 tasks."""
+    from clsurvey_torch.utils import io, paths
+
+    name = manager.method.eval_name
+    out_dir = paths.get_test_results_path(
+        FRAMEWORK_DS, name, model, "timing_mode", manager.exp_name,
+        create=False)
+    matrix = []
+    for i in range(4):
+        res = io.load(os.path.join(
+            out_dir, f"test_method_performances{name}{i}.pth"))[name]
+        series = res["seq_res"][i]
+        if len(series) != 4 - i or len(res["seq_forgetting"][i]) != \
+                3 - i or not all(0.0 <= a <= 100.0 for a in series):
+            raise AssertionError(f"{name}: malformed result dict "
+                                 f"{i}: {res}")
+        matrix.append(series)
+    return matrix
+
+
+def phase2_task(manager, method: str, task: int):
+    """Task ``task`` of a two-phase method: SUCCESS token, decay state,
+    best model, phase seconds. Returns (model, its directory, record for
+    the log)."""
+    from clsurvey_torch.framework.hyperparam import PHASE_TIMING_FILENAME
+    from clsurvey_torch.utils import io, paths
+
+    exp_dir = manager.task_training_dir(task, create=False)
+    if not paths.has_success(exp_dir):
+        raise AssertionError(f"{method} task {task}: no SUCCESS token in "
+                             f"{exp_dir}")
+    hp = io.load(os.path.join(exp_dir, paths.HYPERPARAMS_CKPT_FILENAME))
+    model = io.load(os.path.join(exp_dir, paths.BEST_MODEL_FILENAME))
+    _finite_tree(model["params"], f"{method} task {task} weights")
+    phases = io.load(os.path.join(manager.task_dir(task, create=False),
+                                  PHASE_TIMING_FILENAME))
+    return model, exp_dir, {
+        "framework": method, "task": task, **phases,
+        "attempts": min(int(hp["state"]["attempts"]) + 1, MAX_ATTEMPTS),
+        **hp["state"]["hyperparams"]}
+
+
+def phase_framework(base_path: str, card: str) -> dict:
+    """The per-method timing protocol of the JAX package's
+    ``scripts/run_timing_mode.py``: from the SI first-task base model at
+    ``base_path``, SI, EWC and MAS through Phase 1, Phase 2 (at most
+    ``MAX_ATTEMPTS`` attempts) and the eval matrix, on the card at full
+    width. Accuracies are not checked (plain SGD at lr 5e-3 without BN is
+    unsteady on this data, so the number of attempts varies); artifacts,
+    shapes, launch counts and card-vs-CPU agreement are. Returns
+    {method: launches}."""
+    from clsurvey_torch.utils import io, timing
 
     all_launches = {}
     for method in FRAMEWORK_METHODS:
-        argv = common + ["--method_name", method, "--runmode", "timing_mode",
-                         "--gridsearch_name", "timing_mode",
-                         "--max_attempts_per_task", str(MAX_ATTEMPTS),
-                         "--test"]
-        log("framework: python -m clsurvey_torch.framework.main",
-            " ".join(argv))
-        _kernels.reset_launches()
-        t0 = time.perf_counter()
-        manager = cli_main.cli(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = all_launches[method] = dict(_kernels.LAUNCHES)
-        for name, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"kernel {name} never launched in "
-                                     f"{method}'s run")
+        manager, launches, wall = run_method(
+            method, ["--max_attempts_per_task", str(MAX_ATTEMPTS)])
+        all_launches[method] = launches
         # tasks 2-4: decay state, SUCCESS token, a loadable best model
         for task in (2, 3, 4):
-            exp_dir = manager.task_training_dir(task, create=False)
-            if not paths.has_success(exp_dir):
-                raise AssertionError(f"{method} task {task}: no SUCCESS "
-                                     f"token in {exp_dir}")
-            hp = io.load(os.path.join(exp_dir,
-                                      paths.HYPERPARAMS_CKPT_FILENAME))
-            failed = int(hp["state"]["attempts"])
-            model = io.load(os.path.join(exp_dir, paths.BEST_MODEL_FILENAME))
+            model, exp_dir, record = phase2_task(manager, method, task)
             aux = model["method_aux"]
-            _finite_tree(model["params"], f"{method} task {task} weights")
             _finite_tree(aux["omega"], f"{method} task {task} omega",
                          nonneg=True)
             if method == "SI":
                 _finite_tree(aux["w"], f"SI task {task} w")
-            phases = io.load(os.path.join(
-                manager.task_dir(task, create=False), PHASE_TIMING_FILENAME))
             prep = io.load(os.path.join(
                 exp_dir, timing.PREPROCESS_TIME_FILENAME))["preprocess_time"]
-            log(json.dumps({
-                "framework": method, "task": task, **phases,
-                "attempts": min(failed + 1, MAX_ATTEMPTS),
-                "lambda": hp["state"]["hyperparams"]["lambda"],
-                "importance_s": prep, "card": card}))
-        # the eval matrix: one reference-shaped dict per ref task
-        out_dir = paths.get_test_results_path(
-            FRAMEWORK_DS, method, FRAMEWORK_MODEL, "timing_mode",
-            manager.exp_name, create=False)
-        matrix = []
-        for i in range(4):
-            res = io.load(os.path.join(
-                out_dir, f"test_method_performances{method}{i}.pth"))[method]
-            series = res["seq_res"][i]
-            if len(series) != 4 - i or len(res["seq_forgetting"][i]) != \
-                    3 - i or not all(0.0 <= a <= 100.0 for a in series):
-                raise AssertionError(f"{method}: malformed result dict "
-                                     f"{i}: {res}")
-            matrix.append(series)
+            log(json.dumps({**record, "importance_s": prep, "card": card}))
+        matrix = eval_matrix(manager)
         log(json.dumps({"framework": method, "seconds": wall,
                         "launches": launches, "eval_matrix": matrix,
                         "card": card}))
@@ -593,6 +642,198 @@ def check_importance(manager, base_model: dict) -> None:
             f"{top:.3g}")
         if not worst <= IMPORTANCE_REL_TOL * top:
             raise AssertionError(f"{what}: the card differs from the CPU")
+
+
+BN_MODEL = "small_VGG9_cl_128_128_BN_DROP"
+EBLL_STATIC = "0.01;10;1e-2;100"  # lr; epochs; alpha; dim: one AE per task
+DISTILL_REL_TOL = 1e-4  # card vs CPU distillation value
+
+
+def phase_methods(base_path: str, card: str) -> dict:
+    """LWF and EBLL (two phases), mean_IMM and mode_IMM (Phase 1, merges at
+    eval time) from the SI base model at ``base_path``, and finetuning on
+    the batch-norm and dropout model, each through the timing_mode CLI with
+    ``--test`` on the card at full width. Artifacts and numbers are
+    checked, not accuracies. Returns {method: launches}."""
+    from clsurvey_torch.framework.hyperparam import PHASE_TIMING_FILENAME
+    from clsurvey_torch.methods.imm import PRECISION_FILENAME
+    from clsurvey_torch.utils import io, timing
+
+    all_launches = {}
+    attempts = ["--max_attempts_per_task", str(MAX_ATTEMPTS)]
+    for method, extra in (
+            ("LWF", attempts),
+            ("EBLL", attempts + ["--static_hyperparams", EBLL_STATIC])):
+        manager, launches, wall = run_method(method, extra)
+        all_launches[method] = launches
+        models = {}
+        for task in (2, 3, 4):
+            models[task], _, record = phase2_task(manager, method, task)
+            if method == "EBLL":
+                encoders = models[task]["method_aux"]["encoders"]
+                if len(encoders) != task - 1:
+                    raise AssertionError(
+                        f"EBLL task {task}: {len(encoders)} encoders in "
+                        f"the best model, not {task - 1}")
+                _finite_tree({str(i): e for i, e in enumerate(encoders)},
+                             f"EBLL task {task} encoders")
+                if encoders[-1]["enc"]["kernel"].shape != (2048, 100):
+                    raise AssertionError("EBLL: encoder of another shape")
+            log(json.dumps({**record, "card": card}))
+        log(json.dumps({"framework": method, "seconds": wall,
+                        "launches": launches,
+                        "eval_matrix": eval_matrix(manager), "card": card}))
+        if method == "LWF":
+            check_distillation(manager, models[3], models[4])
+
+    for method in ("mean_IMM", "mode_IMM"):
+        manager, launches, wall = run_method(method, [])
+        all_launches[method] = launches
+        mode = manager.method.mode
+        for task in (2, 3, 4):
+            task_dir = manager.task_training_dir(task, create=False)
+            merged = io.load(os.path.join(
+                task_dir, f"best_model_{mode}_IMM_merge.pth.tar"))
+            _finite_tree(merged["params"], f"{method} merge {task}")
+            phases = io.load(os.path.join(
+                manager.task_dir(task, create=False), PHASE_TIMING_FILENAME))
+            log(json.dumps({"framework": method, "task": task, **phases,
+                            "card": card}))
+        if mode == "mode":
+            # IMM trains task 1 too (L2 transfer from the base model)
+            for d in (manager.task_training_dir(t, create=False)
+                      for t in (1, 2, 3, 4)):
+                prec = io.load(os.path.join(d, PRECISION_FILENAME))
+                _finite_tree(prec, f"precision in {d}", nonneg=True)
+                if min(float(torch.as_tensor(v).min()) for v in
+                       _leaves(prec)) <= 0:
+                    raise AssertionError(f"precision in {d} is not positive")
+        merge_s = io.load(os.path.join(
+            manager.task_training_dir(4, create=False),
+            timing.PREPROCESS_TIME_FILENAME))["preprocess_time"]
+        log(json.dumps({"framework": method, "seconds": wall,
+                        "merge_s": merge_s, "launches": launches,
+                        "eval_matrix": eval_matrix(manager), "card": card}))
+        if mode == "mode":
+            check_mode_fisher(manager, io.load(base_path))
+
+    manager, launches, wall = run_method("finetuning", [], model=BN_MODEL)
+    all_launches["finetuning_BN_DROP"] = launches
+    for task in (1, 2, 3, 4):
+        exp_dir = manager.task_training_dir(task, create=False)
+        model = io.load(os.path.join(exp_dir, "best_model.pth.tar"))
+        _finite_tree(model["params"], f"BN model, task {task}: weights")
+        _finite_tree(model["batch_stats"], f"BN model, task {task}: stats")
+        stats = model["batch_stats"]["features"]
+        if sorted(stats) != ["bn_0", "bn_2", "bn_4", "bn_5", "bn_7", "bn_8"] \
+                or any(float(st["var"].min()) <= 0 for st in stats.values()):
+            raise AssertionError(f"BN model, task {task}: batch_stats "
+                                 f"{sorted(stats)} or a variance <= 0")
+        with open(os.path.join(exp_dir, "error_history.json")) as f:
+            history = json.load(f)
+        log(json.dumps({
+            "framework": "finetuning_BN_DROP", "task": task,
+            "seconds": manager.extras["task_seconds"][task],
+            "val_acc": model["meta"].get("val_acc"),
+            "epochs": len(history["error_history"]),
+            "last_train_loss": history["train_loss"],
+            "never_improved": bool(model["meta"].get("failed_attempt")),
+            "card": card}))
+    log(json.dumps({"framework": "finetuning_BN_DROP", "seconds": wall,
+                    "launches": launches,
+                    "eval_matrix": eval_matrix(manager, BN_MODEL),
+                    "card": card}))
+    check_cli_model(manager, model)
+    return all_launches
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _on_both_devices(manager, rule, task_counter: int, run) -> dict:
+    """``run(ctx)`` under an augment-free engine context of the run's model
+    on the CPU (plain versions of the kernels) and on the card."""
+    from clsurvey_torch.methods import common
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        manager.args.device = dev
+        ctx = common.build_engine(manager, rule, task_counter,
+                                  augment=False).ctx
+        t0 = time.perf_counter()
+        out[dev] = run(ctx)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        log(f"  on {dev}: {time.perf_counter() - t0:.2f} s")
+    manager.args.device = "cuda"
+    return out
+
+
+def check_distillation(manager, teacher_model: dict, model: dict) -> None:
+    """LwF's distillation term of task 4's model against task 3's (three
+    previous heads, lambda 1) on task 4's first 200 train rows, on the card
+    and on the CPU: equal within ``DISTILL_REL_TOL`` relative."""
+    from clsurvey_torch.engine.train import state_from_model
+    from clsurvey_torch.methods.lwf import LwFRule
+
+    rule = LwFRule()
+    images = manager.dataset.get_task_dataset(4).train.images[:200]
+
+    def run(ctx):
+        mstate = rule.init_state(None, {"lambda": 1.0}, ctx,
+                                 prev_model=teacher_model)
+        state = state_from_model(model, mstate, ctx.device)
+        with torch.no_grad():
+            x = ctx.preprocess(torch.from_numpy(images).to(ctx.device))
+            feats, _ = ctx.forward_feats(state.trainable["params"],
+                                         state.batch_stats, x, False)
+            return float(rule.distill_term(ctx, state.trainable, feats,
+                                           (x, None), mstate))
+
+    log("distillation term on 200 rows, three previous heads:")
+    value = _on_both_devices(manager, rule, 4, run)
+    log(f"distillation term, card vs CPU: {value['cuda']:.7g} vs "
+        f"{value['cpu']:.7g} (tolerance {DISTILL_REL_TOL:g} relative)")
+    if not value["cpu"] > 0 or abs(value["cuda"] - value["cpu"]) > \
+            DISTILL_REL_TOL * abs(value["cpu"]):
+        raise AssertionError("the distillation term on the card differs "
+                             "from the CPU's")
+
+
+def check_mode_fisher(manager, base_model: dict) -> None:
+    """mode-IMM's Fisher of the base model on task 1's first 400 train rows
+    in batches of 200, with one set of labels (sampled on the CPU from the
+    model's softmax) handed to both runs: every entry on the card within
+    ``IMPORTANCE_REL_TOL`` of the largest entry of the CPU's."""
+    from clsurvey_torch.methods.base import UpdateRule
+    from clsurvey_torch.models.convert import params_from_jax
+    from clsurvey_torch.ops import importance
+
+    images = manager.dataset.get_task_dataset(1).train.images[:400]
+    logits = _logits_on(manager, base_model, images, 0, "cpu")
+    labels = torch.multinomial(
+        torch.softmax(logits, -1), 1,
+        generator=torch.Generator().manual_seed(0)).squeeze(1).numpy()
+
+    def run(ctx):
+        out = importance.imm_mode_fisher(
+            ctx, params_from_jax(base_model["params"], ctx.device), {},
+            base_model["heads"], 0, [images], 200, sampled_labels=[labels])
+        return {k: v.cpu() for k, v in out.items()}
+
+    log("mode-IMM Fisher on 400 rows:")
+    omega = _on_both_devices(manager, UpdateRule(), 2, run)
+    top = max(float(v.max()) for v in omega["cpu"].values())
+    worst = max(float((omega["cuda"][k] - v).abs().max())
+                for k, v in omega["cpu"].items())
+    log(f"mode-IMM Fisher on 400 rows, card vs CPU: max |diff| {worst:.3g}, "
+        f"largest entry {top:.3g} (tolerance {IMPORTANCE_REL_TOL:g} of it)")
+    if not worst <= IMPORTANCE_REL_TOL * top:
+        raise AssertionError("mode-IMM Fisher: the card differs from the "
+                             "CPU")
 
 
 def phase_protocol(card: str) -> None:
@@ -669,7 +910,7 @@ def phase_protocol(card: str) -> None:
                      "calls": e.count} for e in top]}))
 
 
-PHASES = ("card", "kernels", "cli", "framework", "protocol")
+PHASES = ("card", "kernels", "cli", "framework", "methods", "protocol")
 
 
 def main(argv=None) -> int:
@@ -690,18 +931,36 @@ def main(argv=None) -> int:
     import clsurvey_torch  # noqa: F401  (fail before printing anything)
 
     card = card_line()
-    phase_card(card)  # always: every other phase needs the kernels built
-    checks = launches = fw_launches = None  # None: the phase did not run
+
+    def timed(name, run, *args):
+        t0 = time.perf_counter()
+        out = run(*args)
+        torch.cuda.synchronize()
+        log(json.dumps({"phase": name,
+                        "seconds": time.perf_counter() - t0, "card": card}))
+        return out
+
+    # always: every other phase needs the kernels built
+    timed("card", phase_card, card)
+    # None: the phase did not run
+    checks = launches = fw_launches = method_launches = None
     if "kernels" in phases:
-        checks = phase_kernels()
+        checks = timed("kernels", phase_kernels)
     if "cli" in phases:
         with tempfile.TemporaryDirectory() as root:
-            launches = phase_cli(root)
-    if "framework" in phases:
+            launches = timed("cli", phase_cli, root)
+    if {"framework", "methods"} & set(phases):
+        # one root and one base model for both phases
         with tempfile.TemporaryDirectory() as root:
-            fw_launches = phase_framework(root, card)
+            base_path = si_base_model(root, card)
+            if "framework" in phases:
+                fw_launches = timed("framework", phase_framework, base_path,
+                                    card)
+            if "methods" in phases:
+                method_launches = timed("methods", phase_methods, base_path,
+                                        card)
     if "protocol" in phases:
-        phase_protocol(card)
+        timed("protocol", phase_protocol, card)
     if checks is not None:
         sources = {"normalize_flip": "clsurvey_torch/csrc/preprocess.cu",
                    "pool_fwd": "clsurvey_torch/csrc/pool.cu",
@@ -715,7 +974,9 @@ def main(argv=None) -> int:
                            checks[name], launches and launches[name],
                            torch.float32),
              "launches_framework": fw_launches and {
-                 m: n[name] for m, n in fw_launches.items()}}
+                 m: n[name] for m, n in fw_launches.items()},
+             "launches_methods": method_launches and {
+                 m: n[name] for m, n in method_launches.items()}}
             for name in sources]}))
     if set(phases) >= set(PHASES):
         log(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ that inject each method's regularizer into ``optimizer.step``
   and per-batch metrics are read back once per epoch;
 - each batch is gathered on the device, then normalized and flipped by
   ``ops/preprocess.py`` (kernel A on the card);
+- a batch-norm model's running statistics travel in the train state
+  (``batch_stats``, ``models/backbones.py``'s flat dict) and every train
+  step returns the new ones; a dropout model's keep-masks are drawn per
+  step from the epoch's generator on the device, next to the flip masks;
 - method mechanics plug in via ``UpdateRule`` hooks (``methods/base.py``)
   evaluated inside the same step, in the reference's "regularizer inside
   optimizer.step" order: CE-grads (+ extra loss terms) -> + penalty grads ->
@@ -34,6 +38,7 @@ not ported yet: such a split raises."""
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from dataclasses import dataclass
@@ -46,7 +51,8 @@ from torch.func import functional_call
 
 from clsurvey_torch.methods.base import UpdateRule
 from clsurvey_torch.models import heads as heads_lib
-from clsurvey_torch.models.convert import params_from_jax, params_to_jax
+from clsurvey_torch.models.convert import (
+    batch_stats_from_jax, batch_stats_to_jax, params_from_jax, params_to_jax)
 from clsurvey_torch.models.registry import ModelSpec
 from clsurvey_torch.ops import preprocess as pp
 from clsurvey_torch.utils import device as device_lib
@@ -63,18 +69,22 @@ DIVERGENCE_LOSS_BOUND = float(
 
 
 # ---------------------------------------------------------------------------
-# trees: nested dicts of tensors
+# trees: nested dicts (and lists) of tensors
 # ---------------------------------------------------------------------------
 
 def tree_map(fn: Callable, *trees):
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return [tree_map(fn, *items) for items in zip(*trees)]
     return fn(*trees)
 
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -130,8 +140,29 @@ class EngineContext:
                 "bias": trainable["heads"]["bias"],
                 "class_counts": self.class_counts}
 
-    def forward_feats(self, params, batch_stats, x, train: bool):
-        return functional_call(self.backbone, params, (x,)), batch_stats
+    def forward_feats(self, params, batch_stats, x, train: bool,
+                      dropout_masks=None):
+        """-> (features, batch_stats). ``train=True`` normalizes with the
+        batch's statistics and returns the updated running ones, and drops
+        units under ``dropout_masks``; ``train=False`` (eval, teachers,
+        importance passes) uses the running statistics and no dropout."""
+        if train:
+            return functional_call(
+                self.backbone, params, (x,),
+                {"batch_stats": batch_stats, "train": True,
+                 "dropout_masks": dropout_masks})
+        return functional_call(self.backbone, params, (x,),
+                               {"batch_stats": batch_stats}), batch_stats
+
+    def draw_dropout_masks(self, batch_size: int, gen):
+        """One (B, d_j) uint8 keep-mask per trunk layer, p(keep) = 0.5,
+        drawn on the device from ``gen``; None for a model without
+        dropout."""
+        if not self.spec.uses_dropout:
+            return None
+        return [torch.randint(0, 2, (batch_size, int(d)), dtype=torch.uint8,
+                              device=self.device, generator=gen)
+                for d in self.spec.classifier_dims]
 
     def task_logits(self, trainable, feats):
         return heads_lib.forward(self.bank(trainable), feats, self.task)
@@ -174,11 +205,12 @@ class Engine:
     def __init__(self, ctx: EngineContext):
         self.ctx = ctx
 
-    def _base_loss_and_grads(self, trainable, batch_stats, batch, mstate):
+    def _base_loss_and_grads(self, trainable, batch_stats, batch, mstate,
+                             dropout_masks=None):
         ctx = self.ctx
         x, y = batch
         feats, new_bs = ctx.forward_feats(trainable["params"], batch_stats,
-                                          x, True)
+                                          x, True, dropout_masks)
         logits = ctx.task_logits(trainable, feats)
         ce = F.cross_entropy(logits, y)
         extra = ctx.update_rule.extra_loss(ctx, trainable, feats, batch,
@@ -191,7 +223,7 @@ class Engine:
                 new_bs, {"loss": ce.detach(), "acc": acc})
 
     def _train_step(self, state: TrainState, x_u8, y, lr: float,
-                    flip_mask=None):
+                    flip_mask=None, dropout_masks=None):
         ctx = self.ctx
         rule = ctx.update_rule
         x = ctx.preprocess(x_u8, flip_mask)
@@ -199,12 +231,14 @@ class Engine:
 
         # a rule may take over the gradient computation (GEM's projection
         # needs per-memory gradients); it is handed the base computation
+        base = functools.partial(self._base_loss_and_grads,
+                                 dropout_masks=dropout_masks)
         if hasattr(rule, "compute_grads"):
             loss, grads, new_bs, metrics = rule.compute_grads(
                 ctx, state.trainable, state.batch_stats, batch,
-                state.mstate, self._base_loss_and_grads)
+                state.mstate, base)
         else:
-            loss, grads, new_bs, metrics = self._base_loss_and_grads(
+            loss, grads, new_bs, metrics = base(
                 state.trainable, state.batch_stats, batch, state.mstate)
 
         with torch.no_grad():
@@ -253,7 +287,8 @@ class Engine:
                     batch_size: int):
         """One epoch over ``perm`` (truncated to whole batches). ``gen``
         draws the per-sample flip masks on the device (unused without
-        augmentation). Metrics are means of the per-batch CE and
+        augmentation) and, for a dropout model, each step's keep-masks
+        (a dropout model therefore needs ``gen``). Metrics are means of the per-batch CE and
         accuracy."""
         ctx = self.ctx
         n = int(perm.shape[0])
@@ -270,7 +305,9 @@ class Engine:
             flip = (torch.randint(0, 2, (batch_size,), dtype=torch.uint8,
                                   device=ctx.device, generator=gen)
                     if ctx.augment else None)
-            state, metrics = self._train_step(state, x, y, lr, flip)
+            state, metrics = self._train_step(
+                state, x, y, lr, flip,
+                ctx.draw_dropout_masks(batch_size, gen))
             losses.append(metrics["loss"])
             accs.append(metrics["acc"])
         return state, {"loss": torch.stack(losses).mean(),
@@ -377,7 +414,7 @@ def model_state_dict(ctx: EngineContext, state: TrainState,
     host = trainable_to_host(state.trainable)
     out = {
         "params": host["params"],
-        "batch_stats": io.to_host(state.batch_stats),
+        "batch_stats": batch_stats_to_jax(state.batch_stats),
         "heads": {**host["heads"],
                   "class_counts": np.asarray(ctx.class_counts)},
         "meta": dict(meta or {}),
@@ -393,7 +430,7 @@ def state_from_model(model: dict, mstate: Any, device) -> TrainState:
     """Build a fresh TrainState (zero momentum) on ``device`` from a
     model-state dict."""
     trainable = trainable_from_host(model, device, requires_grad=True)
-    batch_stats = tree_to_device(model.get("batch_stats", {}), device)
+    batch_stats = batch_stats_from_jax(model.get("batch_stats"), device)
     return TrainState(trainable, batch_stats, tree_zeros_like(trainable),
                       mstate)
 
@@ -426,7 +463,7 @@ def _load_resume(ckpt_path: str, device):
             f"restart the task.")
     state = TrainState(
         trainable_from_host(ck["trainable"], device, requires_grad=True),
-        tree_to_device(ck["batch_stats"], device),
+        batch_stats_from_jax(ck["batch_stats"], device),
         trainable_from_host(ck["momentum"], device, requires_grad=False),
         tree_to_device(ck["mstate"], device))
     return ck, state
@@ -560,7 +597,7 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
             meta = {"epoch": epoch, "lr": lr, "best_acc": best_acc,
                     "val_beat_counts": val_beat_counts}
             trees = {"trainable": trainable_to_host(state.trainable),
-                     "batch_stats": io.to_host(state.batch_stats),
+                     "batch_stats": batch_stats_to_jax(state.batch_stats),
                      "momentum": trainable_to_host(state.momentum),
                      "mstate": io.to_host(state.mstate)}
             io.save({**meta, **trees}, ckpt_path)

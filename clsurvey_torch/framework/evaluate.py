@@ -24,9 +24,9 @@ import numpy as np
 import torch
 
 from clsurvey_torch.engine.train import (
-    Engine, data_budget_bytes, make_context, trainable_from_host,
-    tree_to_device)
+    Engine, data_budget_bytes, make_context, trainable_from_host)
 from clsurvey_torch.methods.base import UpdateRule
+from clsurvey_torch.models.convert import batch_stats_from_jax
 from clsurvey_torch.utils import io, paths as paths_lib
 
 
@@ -47,7 +47,7 @@ def _eval_engine(manager, model: dict, task: int, n_tasks: int):
         update_rule=UpdateRule(), device=manager.args.device,
         augment=False)
     trainable = trainable_from_host(model, ctx.device, requires_grad=False)
-    batch_stats = tree_to_device(model.get("batch_stats", {}), ctx.device)
+    batch_stats = batch_stats_from_jax(model.get("batch_stats"), ctx.device)
     return Engine(ctx), trainable, batch_stats
 
 

@@ -1,8 +1,10 @@
 """Method registry (ref:src/methods/method.py:35-78 ``parse``).
 
-Ported so far: the baselines ``finetuning`` and ``joint``, and the
-importance regularisers ``EWC``, ``MAS`` and ``SI``. Any other name of the
-JAX package raises, naming its ROADMAP item."""
+Ported so far: the baselines ``finetuning`` and ``joint``, the importance
+regularisers ``EWC``, ``MAS`` and ``SI``, the distillation methods ``LWF``
+and ``EBLL``, and IMM, whose mode is parsed from the name (``mean_IMM`` /
+``mode_IMM``). Any other name of the JAX package raises, naming its ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -10,7 +12,6 @@ from clsurvey_torch.methods.base import Category, Method, UpdateRule  # noqa: F4
 
 # method name of the JAX package -> its item in ROADMAP.md, queue 1
 _NOT_PORTED = {
-    "LWF": "item 6: distillation", "EBLL": "item 6: distillation",
     "GEM": "item 7: rehearsal", "ICARL": "item 7: rehearsal",
     "finetuning_rehearsal_full_mem": "item 7: rehearsal",
     "finetuning_rehearsal_partial_mem": "item 7: rehearsal",
@@ -21,16 +22,20 @@ _NOT_PORTED = {
 
 def parse(method_name: str) -> Method:
     """String -> Method object."""
+    from clsurvey_torch.methods.ebll import EBLL
     from clsurvey_torch.methods.finetune import Finetune, Joint
+    from clsurvey_torch.methods.lwf import LWF
     from clsurvey_torch.methods.reg_based import EWC, MAS, SI
 
     exact = {Finetune().name: Finetune, Joint().name: Joint,
-             "EWC": EWC, "MAS": MAS, "SI": SI}
+             "EWC": EWC, "MAS": MAS, "SI": SI, "LWF": LWF, "EBLL": EBLL}
     if method_name in exact:
         return exact[method_name]()
     item = _NOT_PORTED.get(method_name)
     if item is None and "IMM" in method_name:
-        item = "item 5: IMM"
+        from clsurvey_torch.methods.imm import IMM
+        mode = method_name.replace("_", "").replace("IMM", "").strip()
+        return IMM(mode=mode or "mean")
     if item is None:
         raise NotImplementedError(f"Method not yet parseable: {method_name}")
     raise NotImplementedError(

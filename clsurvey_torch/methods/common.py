@@ -14,9 +14,10 @@ import torch
 
 from clsurvey_torch.engine.train import (
     Engine, TrainJob, TrainState, make_context, train_task, tree_map,
-    tree_zeros_like, trainable_from_host, tree_to_device)
+    tree_zeros_like, trainable_from_host)
 from clsurvey_torch.methods.base import UpdateRule
 from clsurvey_torch.models import heads as heads_lib
+from clsurvey_torch.models.convert import batch_stats_from_jax
 from clsurvey_torch.utils import io, rng as rng_lib
 
 
@@ -64,8 +65,8 @@ def rebuild_head_bank(old_bank: dict, head_gen, n_tasks: int,
 
 
 def build_engine(manager, update_rule: UpdateRule, task_counter: int,
-                 augment: bool = True, class_counts=None,
-                 n_tasks: int | None = None,
+                 augment: bool = True, freeze_backbone: bool = False,
+                 class_counts=None, n_tasks: int | None = None,
                  l1_decay: bool = False) -> Engine:
     """EngineContext from framework state. ``task_counter`` is 1-based."""
     # global --no_augment gate (parity runs); method-level augment=False
@@ -87,6 +88,7 @@ def build_engine(manager, update_rule: UpdateRule, task_counter: int,
         device=manager.args.device,
         augment=augment,
         weight_decay=manager.args.weight_decay,
+        freeze_backbone=freeze_backbone,
         l1_decay=l1_decay,
     )
     return Engine(ctx)
@@ -94,17 +96,23 @@ def build_engine(manager, update_rule: UpdateRule, task_counter: int,
 
 def run_training(manager, update_rule: UpdateRule, lr: float,
                  hyperparams: dict, exp_dir: str, start_model,
-                 seed: int = 7, task_data=None, mstate: Any = None,
+                 num_epochs: int | None = None, seed: int = 7,
+                 reinit_head: bool = True, task_data=None,
+                 mstate: Any = None, freeze_backbone: bool = False,
                  class_counts=None, n_tasks: int | None = None,
                  engine: Engine | None = None, l1_decay: bool = False):
     """One full task training: the engine-driven equivalent of each
     reference method-main. ``mstate`` is a ready method state (else the
-    rule builds one); ``engine`` is reused if given. Returns
+    rule builds one); ``engine`` is reused if given; ``num_epochs``
+    overrides the run's, ``reinit_head=False`` keeps the start model's head
+    for the current task and ``freeze_backbone`` trains the heads alone
+    (LwF's head warm-up uses all three). Returns
     (best_model_dict, best_val_acc, final_state, engine)."""
     args = manager.args
     model = load_model(start_model)
     if engine is None:
         engine = build_engine(manager, update_rule, manager.task_counter,
+                              freeze_backbone=freeze_backbone,
                               class_counts=class_counts, n_tasks=n_tasks,
                               l1_decay=l1_decay)
     ctx = engine.ctx
@@ -120,15 +128,16 @@ def run_training(manager, update_rule: UpdateRule, lr: float,
         model["heads"] = rebuild_head_bank(
             model["heads"], head_gen, ctx.n_tasks,
             np.asarray(ctx.class_counts))
-    trainable = prepare_trainable(model, ctx.task, ctx.device, head_gen)
+    trainable = prepare_trainable(model, ctx.task, ctx.device, head_gen,
+                                  reinit_head=reinit_head)
     if mstate is None:
         mstate = update_rule.init_state(trainable, hyperparams, ctx)
-    batch_stats = tree_to_device(model.get("batch_stats", {}), ctx.device)
+    batch_stats = batch_stats_from_jax(model.get("batch_stats"), ctx.device)
     state = TrainState(trainable, batch_stats, tree_zeros_like(trainable),
                        mstate)
     job = TrainJob(
         exp_dir=exp_dir,
-        num_epochs=args.num_epochs,
+        num_epochs=num_epochs if num_epochs is not None else args.num_epochs,
         batch_size=args.batch_size,
         lr=lr, seed=seed,
         saving_freq=args.saving_freq,

@@ -42,7 +42,8 @@ from clsurvey_torch.engine.train import tree_zeros_like
 from clsurvey_torch.methods import common
 from clsurvey_torch.methods.base import Category, Method, UpdateRule
 from clsurvey_torch.methods.finetune import finetune_grid_train
-from clsurvey_torch.models.convert import params_from_jax, params_to_jax
+from clsurvey_torch.models.convert import (
+    batch_stats_from_jax, params_from_jax, params_to_jax)
 from clsurvey_torch.ops import importance as imp_lib
 from clsurvey_torch.utils import io, timing
 
@@ -236,16 +237,20 @@ class _RegMethodBase(Method):
 
     # -- shared by EWC and MAS ----------------------------------------------
     def _prev_task_inputs(self, args, manager):
-        """The previous task's model (dict, params on the device) and
-        train split, and an augment-free engine context to run it in."""
+        """The previous task's model (dict; params and batch-norm
+        statistics on the device) and train split, and an augment-free
+        engine context to run it in."""
         prev_model = io.load(manager.previous_task_model_path)
         engine = common.build_engine(manager, UpdateRule(),
                                      manager.task_counter, augment=False)
         device = engine.ctx.device
         prev_params = params_from_jax(prev_model["params"], device)
+        prev_stats = batch_stats_from_jax(prev_model.get("batch_stats"),
+                                          device)
         prev_task = manager.task_counter - 1
         prev_data = manager.dataset.get_task_dataset(prev_task)
-        return prev_model, prev_params, prev_task, prev_data, engine.ctx
+        return (prev_model, prev_params, prev_stats, prev_task, prev_data,
+                engine.ctx)
 
 
 @dataclass
@@ -257,11 +262,10 @@ class EWC(_RegMethodBase):
     def _prepare(self, args, manager):
         """Fisher of the finished (previous) task, accumulated onto the
         omega carried in the prev model's aux."""
-        prev_model, prev_params, prev_task, prev_data, ctx = \
+        prev_model, prev_params, prev_stats, prev_task, prev_data, ctx = \
             self._prev_task_inputs(args, manager)
         fisher = imp_lib.ewc_fisher(
-            ctx, prev_params, prev_model.get("batch_stats", {}),
-            prev_model["heads"], prev_task - 1,
+            ctx, prev_params, prev_stats, prev_model["heads"], prev_task - 1,
             np.asarray(prev_data.train.images),
             np.asarray(prev_data.train.labels), args.batch_size)
         return (self._accumulated(prev_model, fisher, ctx.device),
@@ -290,11 +294,10 @@ class MAS(_RegMethodBase):
         return bool(self.static_hyperparams["l1_decay"])
 
     def _prepare(self, args, manager):
-        prev_model, prev_params, prev_task, prev_data, ctx = \
+        prev_model, prev_params, prev_stats, prev_task, prev_data, ctx = \
             self._prev_task_inputs(args, manager)
         omega_new = imp_lib.mas_importance(
-            ctx, prev_params, prev_model.get("batch_stats", {}),
-            prev_model["heads"], prev_task - 1,
+            ctx, prev_params, prev_stats, prev_model["heads"], prev_task - 1,
             np.asarray(prev_data.train.images))
         return (self._accumulated(prev_model, omega_new, ctx.device),
                 prev_params, {})

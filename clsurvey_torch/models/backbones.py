@@ -1,4 +1,5 @@
-"""PyTorch backbones: the custom VGG family (no batch-norm, no dropout yet).
+"""PyTorch backbones: the custom VGG family, with optional batch-norm and
+dropout.
 
 Counterpart of ``clsurvey_tpu/models/backbones.py``:
 
@@ -14,10 +15,25 @@ Counterpart of ``clsurvey_tpu/models/backbones.py``:
   checkpoint's ``fc_0`` rows line up unchanged;
 - ``dtype`` mirrors flax's ``dtype=``: parameters stay float32 and are cast,
   with the layer input, to ``dtype`` at each conv and dense layer; the
-  returned features are float32.
+  returned features are float32;
+- batch-norm sits between conv and ReLU and computes in float32 whatever
+  ``dtype`` is (flax ``BatchNorm(dtype=float32)``). The module holds only
+  ``scale`` and ``bias``; the running statistics are an argument, a flat
+  dict ``{'features.bn_<i>.mean' | '.var': (C,)}``, and a train-mode call
+  returns the new ones, as flax's ``mutable=['batch_stats']`` does. The
+  running update is flax's, written out by hand: ``ra = 0.9*ra +
+  0.1*batch`` with the *biased* batch variance (``nn.BatchNorm2d`` would
+  feed the unbiased one). The batch variance is ``torch.var_mean``'s
+  two-pass value, flax's is ``mean(x^2) - mean(x)^2``: float32 rounding
+  apart, about 1e-6 relative at the activations' scale;
+- dropout (rate 0.5) follows each trunk ReLU. Its keep-masks come from the
+  caller, one (B, d_j) tensor per trunk layer, as the flip masks of the
+  preprocess do: the engine draws them from the epoch's generator, a test
+  hands in the JAX run's. A kept unit is scaled by 2, as flax does.
 
 Parameter names are the JAX package's (``features.conv_<cfg index>``,
-``trunk.fc_<j>``), so ``models/convert.py`` maps them one to one.
+``features.bn_<cfg index>``, ``trunk.fc_<j>``), so ``models/convert.py``
+maps them one to one.
 Weight init mirrors torchvision's VGG ``_initialize_weights``:
 kaiming-normal (fan_out, relu) for convs, N(0, 0.01) for linears (kaiming
 for tiny_CNN's trunk, like the JAX package), zero biases."""
@@ -52,8 +68,27 @@ VGG_CFG: dict[str, tuple] = {
 }
 
 
+BN_MOMENTUM = 0.9  # flax's: the share of the old running value kept
+BN_EPS = 1e-5
+DROPOUT_RATE = 0.5
+
+
 def _cast(t: torch.Tensor | None, dtype) -> torch.Tensor | None:
     return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
+class _ScaleBias(nn.Module):
+    """A batch-norm layer's learnt ``scale`` and ``bias`` (flax's names);
+    the statistics live outside the module."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+
+def bn_stat_names(i: int) -> tuple[str, str]:
+    return f"features.bn_{i}.mean", f"features.bn_{i}.var"
 
 
 class VGGBackbone(nn.Module):
@@ -61,10 +96,13 @@ class VGGBackbone(nn.Module):
     task head is applied outside, from the stacked head bank)."""
 
     def __init__(self, cfg_name: str, classifier_dims: Sequence[int],
-                 input_size: Sequence[int], dtype=torch.float32):
+                 input_size: Sequence[int], dtype=torch.float32,
+                 batch_norm: bool = False, dropout: bool = False):
         super().__init__()
         self.cfg_name = cfg_name
         self.dtype = dtype
+        self.batch_norm = batch_norm
+        self.dropout = dropout
         self.cfg = VGG_CFG[cfg_name]
         self.features = nn.ModuleDict()
         cin, (h, w) = 3, input_size
@@ -73,6 +111,8 @@ class VGGBackbone(nn.Module):
                 h, w = h // 2, w // 2
                 continue
             self.features[f"conv_{i}"] = nn.Conv2d(cin, int(v), 3, padding=1)
+            if batch_norm:
+                self.features[f"bn_{i}"] = _ScaleBias(int(v))
             cin = int(v)
         self.trunk = nn.ModuleDict()
         fan_in = cin * h * w
@@ -85,31 +125,101 @@ class VGGBackbone(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         dense_kaiming = self.cfg_name == "tiny_CNN"
         with torch.no_grad():
-            for conv in self.features.values():
-                fan_out = conv.out_channels * 9
-                conv.weight.normal_(0.0, (2.0 / fan_out) ** 0.5,
-                                    generator=generator)
-                conv.bias.zero_()
+            for name, layer in self.features.items():
+                layer.bias.zero_()
+                if name.startswith("bn_"):
+                    layer.scale.fill_(1.0)
+                    continue
+                fan_out = layer.out_channels * 9
+                layer.weight.normal_(0.0, (2.0 / fan_out) ** 0.5,
+                                     generator=generator)
             for fc in self.trunk.values():
                 std = (2.0 / fc.out_features) ** 0.5 if dense_kaiming \
                     else 0.01
                 fc.weight.normal_(0.0, std, generator=generator)
                 fc.bias.zero_()
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def init_batch_stats(self) -> dict[str, torch.Tensor]:
+        """Running mean 0 and variance 1 for every batch-norm layer (empty
+        without batch-norm), on the parameters' device."""
+        stats = {}
+        for name, layer in self.features.items():
+            if name.startswith("bn_"):
+                mean, var = bn_stat_names(int(name[3:]))
+                stats[mean] = torch.zeros_like(layer.scale)
+                stats[var] = torch.ones_like(layer.scale)
+        return stats
+
+    def _bn(self, x, i: int, batch_stats, train: bool, new_stats: dict):
+        layer = self.features[f"bn_{i}"]
+        mean_name, var_name = bn_stat_names(i)
+        x = _cast(x, torch.float32)
+        if not train:
+            # flax's formula, elementwise: (x - mean) * (rsqrt(var + eps)
+            # * scale) + bias. Safe under torch.func.vmap(grad).
+            mul = torch.rsqrt(batch_stats[var_name] + BN_EPS) * layer.scale
+            return ((x - batch_stats[mean_name].view(1, -1, 1, 1))
+                    * mul.view(1, -1, 1, 1) + layer.bias.view(1, -1, 1, 1))
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            for name, batch in ((mean_name, mean), (var_name, var)):
+                new_stats[name] = (BN_MOMENTUM * batch_stats[name]
+                                   + (1.0 - BN_MOMENTUM) * batch)
+        return F.batch_norm(x, None, None, layer.scale, layer.bias,
+                            training=True, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor, batch_stats: dict | None = None,
+                train: bool = False, dropout_masks=None,
+                part: str = "all"):
+        """``train=False``: the float32 features, batch-norm on the running
+        statistics, no dropout. ``train=True``: ``(features, new
+        batch_stats)``, batch-norm on the batch's statistics, dropout under
+        ``dropout_masks``.
+
+        ``part="features"`` stops after the conv extractor and returns its
+        NHWC-flattened float32 output (EBLL's autoencoder space) in place of
+        the features; ``part="trunk"`` takes such a flat tensor as ``x``
+        and runs only the trunk."""
+        new_stats: dict = {}
+        if part != "trunk":
+            x = self._features(x, batch_stats, train, new_stats)
+        if part != "features":
+            x = self._trunk(x, train, dropout_masks)
+        x = x.to(torch.float32)
+        if not train:
+            return x
+        return x, ({**batch_stats, **new_stats} if new_stats
+                   else batch_stats)
+
+    def _features(self, x_nhwc, batch_stats, train, new_stats):
         dt = self.dtype
-        x = _cast(x_nhwc, dt).permute(0, 3, 1, 2)  # NCHW, channels_last
+        x = x_nhwc.permute(0, 3, 1, 2)  # NCHW, channels_last
         for i, v in enumerate(self.cfg):
             if v == "M":
                 y = pool2x2(x.permute(0, 2, 3, 1).contiguous())
                 x = y.permute(0, 3, 1, 2)
-            else:
-                conv = self.features[f"conv_{i}"]
-                x = torch.relu(F.conv2d(x, _cast(conv.weight, dt),
-                                        _cast(conv.bias, dt), padding=1))
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
-        for fc in self.trunk.values():
-            x = torch.relu(F.linear(x, _cast(fc.weight, dt),
-                                    _cast(fc.bias, dt)))
-        return x.to(torch.float32)
+                continue
+            conv = self.features[f"conv_{i}"]
+            x = F.conv2d(_cast(x, dt), _cast(conv.weight, dt),
+                         _cast(conv.bias, dt), padding=1)
+            if self.batch_norm:
+                x = self._bn(x, i, batch_stats, train, new_stats)
+            x = torch.relu(x)
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
 
+    def _trunk(self, x, train, dropout_masks):
+        dt = self.dtype
+        drop = train and self.dropout
+        if drop and (dropout_masks is None
+                     or len(dropout_masks) != len(self.trunk)):
+            raise ValueError(
+                "a train-mode forward of a dropout model needs one keep-mask "
+                "per trunk layer from the caller (Engine.train_epoch draws "
+                "them from the epoch's generator)")
+        for j, fc in enumerate(self.trunk.values()):
+            x = torch.relu(F.linear(_cast(x, dt), _cast(fc.weight, dt),
+                                    _cast(fc.bias, dt)))
+            if drop:
+                x = x * (dropout_masks[j].to(x.dtype)
+                         * (1.0 / (1.0 - DROPOUT_RATE)))
+        return x

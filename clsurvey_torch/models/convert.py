@@ -7,7 +7,11 @@ either package loads in the other. In the port the same weights are a flat
 ``{'features.conv_<i>.weight': OIHW, ..., 'trunk.fc_<j>.weight': (out, in),
 ...}`` dict of tensors, the backbone module's parameter names. ``fc_0``'s
 rows need no permutation: both packages flatten NHWC, channels fastest.
-Conv weights are made channels_last, the layout the convs run in.
+Conv weights are made channels_last, the layout the convs run in. A
+batch-norm layer's ``bn_<i>/{scale,bias}`` become ``features.bn_<i>.scale``
+and ``.bias``, and its running statistics, flax's separate ``batch_stats``
+collection ``{'features': {'bn_<i>': {'mean', 'var'}}}``, become the flat
+``{'features.bn_<i>.mean', 'features.bn_<i>.var'}`` dict the backbone takes.
 
 Both functions take any tree shaped like the backbone's weights: a method's
 importance trees (``omega``, ``theta_star``, SI's ``w``) travel inside a
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_SUFFIX = {"kernel": "weight", "bias": "bias"}
+_SUFFIX = {"kernel": "weight", "bias": "bias", "scale": "scale"}
 
 
 def params_from_jax(tree: dict, device=None) -> dict[str, torch.Tensor]:
@@ -52,4 +56,25 @@ def params_to_jax(params: dict[str, torch.Tensor] | nn.Module) -> dict:
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         tree.setdefault(group, {}).setdefault(layer, {})[inverse[suffix]] = \
             np.ascontiguousarray(a)
+    return tree
+
+
+def batch_stats_from_jax(tree: dict | None,
+                         device=None) -> dict[str, torch.Tensor]:
+    """flax ``batch_stats`` numpy pytree -> ``{'features.bn_<i>.mean' |
+    '.var': tensor}`` (empty for a model without batch-norm)."""
+    return {f"{group}.{layer}.{leaf}":
+            torch.tensor(np.asarray(value, dtype=np.float32), device=device)
+            for group, layers in (tree or {}).items()
+            for layer, leaves in layers.items()
+            for leaf, value in leaves.items()}
+
+
+def batch_stats_to_jax(stats: dict[str, torch.Tensor]) -> dict:
+    """The inverse: the flax ``batch_stats`` numpy pytree."""
+    tree: dict = {}
+    for name, t in stats.items():
+        group, layer, leaf = name.split(".")
+        tree.setdefault(group, {}).setdefault(layer, {})[leaf] = \
+            t.detach().float().cpu().numpy()
     return tree

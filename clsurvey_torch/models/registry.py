@@ -6,7 +6,8 @@ Counterpart of ``clsurvey_tpu/models/registry.py`` (ref:src/models/net.py:
 first parse, in the JAX package's layout ``{'params', 'batch_stats',
 'heads', 'meta'}`` (numpy), so either package can start from a file the
 other wrote; ``models/convert.py`` maps the backbone weights at load and
-save. This slice builds the VGG family without batch-norm or dropout."""
+save. The VGG family is built with its ``_BN`` / ``_DROP`` variants;
+AlexNet is not ported yet and raises."""
 
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from clsurvey_torch.models import heads as heads_lib
 from clsurvey_torch.models.backbones import VGGBackbone
-from clsurvey_torch.models.convert import params_to_jax
+from clsurvey_torch.models.convert import batch_stats_to_jax, params_to_jax
 from clsurvey_torch.utils import io, rng as rng_lib
 
 
@@ -45,6 +46,8 @@ class ModelSpec:
     arch: str                      # a VGG_CFG name
     input_size: tuple              # (H, W)
     classifier_dims: tuple = ()
+    batch_norm: bool = False
+    dropout: bool = False
     models_root_path: str = ""
     compute_dtype: Any = torch.float32
     path: str = field(default="", init=False)
@@ -57,11 +60,20 @@ class ModelSpec:
 
     def make_backbone(self) -> VGGBackbone:
         return VGGBackbone(self.arch, self.classifier_dims, self.input_size,
-                           dtype=self.compute_dtype)
+                           dtype=self.compute_dtype,
+                           batch_norm=self.batch_norm, dropout=self.dropout)
 
     @property
     def feature_dim(self) -> int:
         return int(self.classifier_dims[-1])
+
+    @property
+    def has_batch_stats(self) -> bool:
+        return self.batch_norm
+
+    @property
+    def uses_dropout(self) -> bool:
+        return self.dropout
 
 
 def _parse_classifier_dims(model_name: str) -> tuple:
@@ -80,18 +92,14 @@ def parse_model_name(models_root_path: str, model_name: str,
     segs = model_name.split("_")
     if "alexnet" in model_name:
         raise _not_ported(model_name, "item 2: AlexNet")
-    if ModelRegularization.batchnorm in segs \
-            or ModelRegularization.dropout in segs:
-        # BN needs care: flax updates the running variance with the
-        # biased batch variance at momentum 0.9, torch's BatchNorm2d with
-        # the unbiased one
-        raise _not_ported(model_name, "item 1: _BN/_DROP variants")
     for cfg in ("small_VGG9", "wide_VGG9", "deep_VGG22", "base_VGG9",
                 "tiny_CNN", "19normal", "16normal", "11normal"):
         if cfg in model_name:
             return ModelSpec(
                 model_name, cfg, input_size,
                 classifier_dims=_parse_classifier_dims(model_name),
+                batch_norm=ModelRegularization.batchnorm in segs,
+                dropout=ModelRegularization.dropout in segs,
                 models_root_path=models_root_path,
                 compute_dtype=compute_dtype,
             )
@@ -123,7 +131,7 @@ def init_model_state(spec: ModelSpec, seed: int, max_tasks: int,
         classes_per_task, class_counts)
     return {
         "params": params_to_jax(backbone),
-        "batch_stats": {},
+        "batch_stats": batch_stats_to_jax(backbone.init_batch_stats()),
         "heads": io.to_host(head_bank),
         "meta": {
             "model_name": spec.name,

@@ -1,4 +1,4 @@
-"""Importance-weight estimation (EWC Fisher, MAS).
+"""Importance-weight estimation (EWC Fisher, MAS, mode-IMM Fisher).
 
 Counterpart of ``clsurvey_tpu/ops/importance.py``, resident path:
 
@@ -15,14 +15,20 @@ Counterpart of ``clsurvey_tpu/ops/importance.py``, resident path:
   instead of N single-sample backward passes. The backbone's pools take
   part through the ``vmap`` rule of ``ops/pool.py``: one launch of kernel
   B1 or B2 per pool and chunk.
+- mode-IMM: the precision of one task's model over its train and val
+  splits, with labels sampled from the model's own softmax
+  (ref:src/methods/IMM/merge.py:155-185).
 
-Both run on backbone params only (the reference's reg dict loses the
+All run on backbone params only (the reference's reg dict loses the
 replaced head) and return a dict like ``params``. The uint8 rows stay on
 the device; each batch is gathered there and normalized by kernel A with
 no flip; a plain Python loop over batches replaces the JAX package's
-``lax.scan``. The ragged tail batch is padded with repeats of row 0,
-weighted 0. The mode-IMM Fisher comes with IMM, and splits above the
-device data budget are not streamed yet: they raise."""
+``lax.scan``. EWC's and MAS's ragged tail batch is padded with repeats of
+row 0, weighted 0; mode-IMM uses whole batches only. ``batch_stats`` is the
+backbone's flat dict of running statistics (``models/convert.py``); every
+pass runs the backbone with ``train=False``, so batch-norm uses those and
+``torch.func.vmap(grad)`` sees no batch statistics. Splits above the device
+data budget are not streamed yet: they raise."""
 
 from __future__ import annotations
 
@@ -137,3 +143,51 @@ def mas_importance(ctx, params, batch_stats, heads_bank, task: int,
             # omega += sum_v w_v |g_v| / N
             omega[k] += torch.tensordot(cw, gk.abs(), dims=1) / n_total
     return omega
+
+
+def imm_mode_fisher(ctx, params, batch_stats, heads_bank, task: int,
+                    splits, batch_size: int,
+                    generator: torch.Generator | None = None,
+                    sampled_labels=None) -> dict:
+    """mode-IMM precision matrix (ref:src/methods/IMM/merge.py:155-185):
+    initialized at 1e-8; for each split (train AND val), per whole batch
+    the model samples labels from its softmax, takes the *mean*-reduced NLL
+    gradient, and accumulates ``grad^2 / n_batches_of_split``. Returns a
+    dict like ``params``.
+
+    ``splits``: list of uint8 image arrays. The labels are drawn with
+    ``torch.multinomial`` from ``generator`` (on ``ctx.device``); the JAX
+    package's ``random.categorical`` stream cannot be reproduced, so
+    ``sampled_labels``, one integer array of the split's usable rows per
+    split, replaces the draw when given."""
+    bank = _bank_on(heads_bank, ctx.device)
+    names = list(params)
+    leaves = [params[k].detach().requires_grad_() for k in names]
+    p = dict(zip(names, leaves))
+    omega = [torch.full_like(t, 1e-8) for t in leaves]
+    for s, images_u8 in enumerate(splits):
+        n_batches = int(images_u8.shape[0]) // batch_size
+        if n_batches == 0:
+            continue
+        images = _resident_u8(images_u8[: n_batches * batch_size],
+                              ctx.device)
+        given = None
+        if sampled_labels is not None:
+            given = torch.as_tensor(np.asarray(sampled_labels[s])).to(
+                ctx.device).long().view(n_batches, batch_size)
+        for b in range(n_batches):
+            x = pp.preprocess(images[b * batch_size: (b + 1) * batch_size],
+                              ctx.mean, ctx.std)
+            feats, _ = ctx.forward_feats(p, batch_stats, x, False)
+            logits = heads_lib.forward(bank, feats, task)
+            if given is not None:
+                y = given[b]
+            else:
+                with torch.no_grad():
+                    y = torch.multinomial(torch.softmax(logits, -1), 1,
+                                          generator=generator).squeeze(1)
+            grads = torch.autograd.grad(F.cross_entropy(logits, y), leaves)
+            sq = torch._foreach_mul(grads, grads)  # omega += g*g / batches
+            torch._foreach_div_(sq, float(n_batches))
+            torch._foreach_add_(omega, sq)
+    return dict(zip(names, omega))

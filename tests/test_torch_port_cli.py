@@ -128,8 +128,8 @@ def test_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("extra,match", [
     (["--profile"], "item 4: profiling"),
-    (["--method_name", "LWF"], "item 6: distillation"),
-    (["--method_name", "mode_IMM"], "item 5: IMM"),
+    (["--method_name", "GEM"], "item 7: rehearsal"),
+    (["--method_name", "packnet"], "item 8: PackNet"),
     (["--ds_name", "tiny"], "item 2: AlexNet and the datasets")])
 def test_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
