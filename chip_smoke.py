@@ -35,20 +35,41 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    encoders in EBLL's models, the merged models and precision caches, the
    batch-norm statistics, the result dicts, and one distillation value and
    one mode-IMM Fisher on the card against the CPU;
-6. protocol: bench.py's throughput point (20k random uint8 rows, batch
+6. rehearsal: on synthetic_3t_20c_64px_400n with its own SI base model,
+   GEM and ICARL (1024 memories a task), the two replay baselines and
+   PackNet through the timing_mode CLI with ``--test``, counters zeroed
+   before each; checks the memories in the best models, iCaRL's exemplar
+   store (153, 76, 51 a class) and its targets, PackNet's masks against a
+   re-pruning of its Phase-1 winner and its pruned weights at exactly 0,
+   prints GEM's share of projected steps, the batch sizes the kernels saw
+   and each run's peak device memory, and holds GEM's projected gradient
+   at task 3 (the run's model, one pass of 1024 rows a past task, and
+   small_VGG9_cl_128_128_BN_DROP from random weights, chunks of 128 rows),
+   one iCaRL NCM entry and one PackNet masked eval on the card against the
+   CPU;
+7. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
 
+The framework and methods phases run two tasks (synthetic_2t_20c_64px_400n,
+one Phase-2 task each), the cli phase four. The kernels phase also holds
+A, B1 and B2 at batch sizes 1, 67, 128 and 1024 (``REHEARSAL_BATCHES``);
+every other size the rehearsal phase hands them (iCaRL's 144 + 56 split,
+the baselines' exemplar rows, herding and val tails) is held right after
+that phase, so every size the path used is held.
+
 Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
 before the last is the ``{"kernels": [...]}`` record: ``launches``
-is the count of the ``cli`` run, ``launches_framework`` and
-``launches_methods`` hold each method's own count (in a partial run the
-counts are null for the phases that did not run); the last line is
-``{"ok": true, "device": {...}}``.
+is the count of the ``cli`` run, ``launches_framework``,
+``launches_methods`` and ``launches_rehearsal`` hold each method's own
+count (in a partial run the counts are null for the phases that did not
+run), ``held_batches`` the batch sizes held against the plain versions;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -73,6 +94,12 @@ MAS_PREPROCESS_SHAPE = (MAS_CHUNK,) + PREPROCESS_SHAPE[1:]
 MAS_POOL_SHAPES = tuple((MAS_CHUNK,) + s[1:] for s in POOL_SHAPES)
 # a row width that is not a multiple of 8: kernel A's scalar route
 SCALAR_PREPROCESS_SHAPE = (200, 64, 60, 3)
+# batch sizes besides 200 that the kernels phase holds up front: one row,
+# an odd size, GEM's 128-row chunks (batch-norm) and its 1024-row pass. The
+# rehearsal phase records the sizes it hands the kernels (iCaRL's split
+# batch, the baselines' exemplar rows, herding and val tails) and holds
+# each one not held here right after it ends.
+REHEARSAL_BATCHES = (1, 67, 128, 1024)
 
 
 def log(*msg) -> None:
@@ -348,12 +375,45 @@ def _kernel_row(name, source, replaces, check, launches, dtype) -> dict:
     }
 
 
+def check_batches(gen, sizes) -> list:
+    """Kernel A (vector kernel, with and without a flip mask) and the pool
+    pair B1/B2 at the four pool inputs of small_VGG9 at 64 px, each at
+    every batch size in ``sizes``, float32 (the rehearsal path's dtype),
+    against their plain versions: A within 1 ulp, B1 and B2 exact.
+    Returns the sizes held."""
+    from clsurvey_torch.ops import pool, preprocess as pp
+
+    for b in sorted(sizes):
+        x = torch.randint(0, 256, (b,) + PREPROCESS_SHAPE[1:],
+                          dtype=torch.uint8, device="cuda", generator=gen)
+        flip = torch.randint(0, 2, (b,), dtype=torch.uint8, device="cuda",
+                             generator=gen)
+        for mask in (flip, None):
+            _preprocess_agrees(pp.preprocess(x, MEAN, STD, mask),
+                               pp.normalize_flip_plain(x, MEAN, STD, mask),
+                               torch.float32, f"batch {b}")
+        for shape in POOL_SHAPES:
+            x = torch.randint(0, 3, (b,) + shape[1:], device="cuda",
+                              generator=gen).float()
+            val, code = pool.pool_fwd(x)
+            pval, pcode = pool.pool_fwd_plain(x)
+            g = torch.randn(val.shape, device="cuda", generator=gen)
+            if not (torch.equal(val, pval) and torch.equal(code, pcode)
+                    and torch.equal(pool.pool_bwd(g, code, x.shape),
+                                    pool.pool_bwd_plain(g, pcode, x.shape))):
+                raise AssertionError(f"kernel B1/B2 disagrees at batch {b}, "
+                                     f"{tuple(x.shape)}")
+    return sorted(sizes)
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {"normalize_flip": check_preprocess(gen)}
     checks["pool_fwd"], checks["pool_bwd"] = check_pool(gen)
+    checks["held_batches"] = check_batches(gen, REHEARSAL_BATCHES)
     log("kernels agree with their plain versions "
-        "(preprocess f32 <= 1 ulp, bf16 exact; pool fwd/bwd exact)")
+        "(preprocess f32 <= 1 ulp, bf16 exact; pool fwd/bwd exact); "
+        f"also at batch sizes {checks['held_batches']}")
     return checks
 
 
@@ -445,26 +505,28 @@ def check_cli_model(manager, model: dict) -> None:
 
 
 FRAMEWORK_MODEL = "small_VGG9_cl_128_128"
-FRAMEWORK_DS = "synthetic_4t_20c_64px_400n"
+FRAMEWORK_DS = "synthetic_2t_20c_64px_400n"  # two tasks: one Phase-2 task
+REHEARSAL_DS = "synthetic_3t_20c_64px_400n"  # GEM's QP: two constraints
 FRAMEWORK_METHODS = ("SI", "EWC", "MAS")
 MAX_ATTEMPTS = 2
 LOGITS_TOL = 1e-4  # card vs CPU logits, absolute and relative
 IMPORTANCE_REL_TOL = 1e-3  # card vs CPU Fisher / omega, of its largest entry
 
 
-def _framework_common() -> list:
-    return [FRAMEWORK_MODEL, "--ds_name", FRAMEWORK_DS, "--device", "cuda"]
+def _framework_common(ds: str = FRAMEWORK_DS) -> list:
+    return [FRAMEWORK_MODEL, "--ds_name", ds, "--device", "cuda"]
 
 
-def si_base_model(root: str, card: str) -> str:
-    """Dumps the SI first-task base model under ``root`` through the CLI,
-    once for the ``framework`` and ``methods`` phases; returns its path."""
+def si_base_model(root: str, card: str, ds: str = FRAMEWORK_DS) -> str:
+    """Dumps the SI first-task base model of ``ds`` under ``root`` through
+    the CLI (once for the ``framework`` and ``methods`` phases, once for
+    ``rehearsal``); returns its path."""
     from clsurvey_torch.framework import main as cli_main
     from clsurvey_torch.utils import config, io
 
     os.environ["CLSURVEY_ROOT"] = root
     config.set_config(None)
-    dump = _framework_common() + [
+    dump = _framework_common(ds) + [
         "--method_name", "SI", "--runmode", "first_task_basemodel_dump",
         "--num_epochs", "10", "--batch_size", "200", "--lr_grid", "5e-3",
         "--boot_lr_grid", "5e-3"]
@@ -479,14 +541,16 @@ def si_base_model(root: str, card: str) -> str:
     return base_path
 
 
-def run_method(method: str, extra: list, model: str = FRAMEWORK_MODEL):
+def run_method(method: str, extra: list, model: str = FRAMEWORK_MODEL,
+               ds: str = FRAMEWORK_DS):
     """One method through the timing_mode CLI with ``--test``, the launch
     counters zeroed just before and read just after; every kernel must
-    have launched. Returns (manager, launches, wall seconds)."""
+    have launched. Returns (manager, launches, wall seconds); the batch
+    sizes the kernels saw stay in ``_kernels.BATCHES``."""
     from clsurvey_torch.framework import main as cli_main
     from clsurvey_torch.ops import _kernels
 
-    argv = [model] + _framework_common()[1:] + [
+    argv = [model] + _framework_common(ds)[1:] + [
         "--method_name", method, "--runmode", "timing_mode",
         "--gridsearch_name", "timing_mode", "--test"] + extra
     log("framework: python -m clsurvey_torch.framework.main", " ".join(argv))
@@ -503,22 +567,23 @@ def run_method(method: str, extra: list, model: str = FRAMEWORK_MODEL):
     return manager, launches, wall
 
 
-def eval_matrix(manager, model: str = FRAMEWORK_MODEL) -> list:
-    """The run's result dicts, one reference-shaped dict per ref task: 10
-    entries in all for 4 tasks."""
+def eval_matrix(manager) -> list:
+    """The run's result dicts, one reference-shaped dict per ref task:
+    n(n+1)/2 entries in all for n tasks (3 for 2, 6 for 3)."""
     from clsurvey_torch.utils import io, paths
 
     name = manager.method.eval_name
+    n = manager.dataset.task_count
     out_dir = paths.get_test_results_path(
-        FRAMEWORK_DS, name, model, "timing_mode", manager.exp_name,
-        create=False)
+        manager.dataset.name, name, manager.model_spec.name, "timing_mode",
+        manager.exp_name, create=False)
     matrix = []
-    for i in range(4):
+    for i in range(n):
         res = io.load(os.path.join(
             out_dir, f"test_method_performances{name}{i}.pth"))[name]
         series = res["seq_res"][i]
-        if len(series) != 4 - i or len(res["seq_forgetting"][i]) != \
-                3 - i or not all(0.0 <= a <= 100.0 for a in series):
+        if len(series) != n - i or len(res["seq_forgetting"][i]) != \
+                n - 1 - i or not all(0.0 <= a <= 100.0 for a in series):
             raise AssertionError(f"{name}: malformed result dict "
                                  f"{i}: {res}")
         matrix.append(series)
@@ -563,8 +628,8 @@ def phase_framework(base_path: str, card: str) -> dict:
         manager, launches, wall = run_method(
             method, ["--max_attempts_per_task", str(MAX_ATTEMPTS)])
         all_launches[method] = launches
-        # tasks 2-4: decay state, SUCCESS token, a loadable best model
-        for task in (2, 3, 4):
+        # task 2: decay state, SUCCESS token, a loadable best model
+        for task in (2,):
             model, exp_dir, record = phase2_task(manager, method, task)
             aux = model["method_aux"]
             _finite_tree(aux["omega"], f"{method} task {task} omega",
@@ -585,7 +650,7 @@ def phase_framework(base_path: str, card: str) -> dict:
 
 
 def check_eval_entry(manager, model: dict, matrix: list) -> None:
-    """Entry (ref task 1, model 4) of the eval matrix again, on the CPU
+    """Entry (ref task 1, last model) of the eval matrix again, on the CPU
     with the plain versions: logits within ``LOGITS_TOL`` of the card's,
     and the accuracy the matrix holds within one test image."""
     test = manager.dataset.get_task_dataset(1).test
@@ -593,7 +658,8 @@ def check_eval_entry(manager, model: dict, matrix: list) -> None:
               for dev in ("cpu", "cuda")}
     diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
     acc = float((logits["cpu"].argmax(-1).numpy() == test.labels).mean())
-    log(f"eval entry (ref task 1, model 4): card vs CPU logits max |diff| "
+    log(f"eval entry (ref task 1, last model): card vs CPU logits max "
+        f"|diff| "
         f"{diff:.3g} on {len(test.labels)} test images; accuracy "
         f"{100 * acc:.2f} (CPU) vs {matrix[0][-1]:.2f} (matrix)")
     torch.testing.assert_close(logits["cuda"], logits["cpu"],
@@ -667,7 +733,7 @@ def phase_methods(base_path: str, card: str) -> dict:
         manager, launches, wall = run_method(method, extra)
         all_launches[method] = launches
         models = {}
-        for task in (2, 3, 4):
+        for task in (2,):
             models[task], _, record = phase2_task(manager, method, task)
             if method == "EBLL":
                 encoders = models[task]["method_aux"]["encoders"]
@@ -677,20 +743,22 @@ def phase_methods(base_path: str, card: str) -> dict:
                         f"the best model, not {task - 1}")
                 _finite_tree({str(i): e for i, e in enumerate(encoders)},
                              f"EBLL task {task} encoders")
-                if encoders[-1]["enc"]["kernel"].shape != (2048, 100):
+                conv_dim = models[task]["params"]["trunk"]["fc_0"][
+                    "kernel"].shape[0]  # 2048 for small_VGG9 at 64 px
+                if encoders[-1]["enc"]["kernel"].shape != (conv_dim, 100):
                     raise AssertionError("EBLL: encoder of another shape")
             log(json.dumps({**record, "card": card}))
         log(json.dumps({"framework": method, "seconds": wall,
                         "launches": launches,
                         "eval_matrix": eval_matrix(manager), "card": card}))
         if method == "LWF":
-            check_distillation(manager, models[3], models[4])
+            check_distillation(manager, io.load(base_path), models[2])
 
     for method in ("mean_IMM", "mode_IMM"):
         manager, launches, wall = run_method(method, [])
         all_launches[method] = launches
         mode = manager.method.mode
-        for task in (2, 3, 4):
+        for task in (2,):
             task_dir = manager.task_training_dir(task, create=False)
             merged = io.load(os.path.join(
                 task_dir, f"best_model_{mode}_IMM_merge.pth.tar"))
@@ -702,14 +770,14 @@ def phase_methods(base_path: str, card: str) -> dict:
         if mode == "mode":
             # IMM trains task 1 too (L2 transfer from the base model)
             for d in (manager.task_training_dir(t, create=False)
-                      for t in (1, 2, 3, 4)):
+                      for t in (1, 2)):
                 prec = io.load(os.path.join(d, PRECISION_FILENAME))
                 _finite_tree(prec, f"precision in {d}", nonneg=True)
                 if min(float(torch.as_tensor(v).min()) for v in
                        _leaves(prec)) <= 0:
                     raise AssertionError(f"precision in {d} is not positive")
         merge_s = io.load(os.path.join(
-            manager.task_training_dir(4, create=False),
+            manager.task_training_dir(2, create=False),
             timing.PREPROCESS_TIME_FILENAME))["preprocess_time"]
         log(json.dumps({"framework": method, "seconds": wall,
                         "merge_s": merge_s, "launches": launches,
@@ -719,7 +787,7 @@ def phase_methods(base_path: str, card: str) -> dict:
 
     manager, launches, wall = run_method("finetuning", [], model=BN_MODEL)
     all_launches["finetuning_BN_DROP"] = launches
-    for task in (1, 2, 3, 4):
+    for task in (1, 2):
         exp_dir = manager.task_training_dir(task, create=False)
         model = io.load(os.path.join(exp_dir, "best_model.pth.tar"))
         _finite_tree(model["params"], f"BN model, task {task}: weights")
@@ -741,7 +809,7 @@ def phase_methods(base_path: str, card: str) -> dict:
             "card": card}))
     log(json.dumps({"framework": "finetuning_BN_DROP", "seconds": wall,
                     "launches": launches,
-                    "eval_matrix": eval_matrix(manager, BN_MODEL),
+                    "eval_matrix": eval_matrix(manager),
                     "card": card}))
     check_cli_model(manager, model)
     return all_launches
@@ -773,14 +841,14 @@ def _on_both_devices(manager, rule, task_counter: int, run) -> dict:
 
 
 def check_distillation(manager, teacher_model: dict, model: dict) -> None:
-    """LwF's distillation term of task 4's model against task 3's (three
-    previous heads, lambda 1) on task 4's first 200 train rows, on the card
-    and on the CPU: equal within ``DISTILL_REL_TOL`` relative."""
+    """LwF's distillation term of task 2's model against the base model
+    (one previous head, lambda 1) on task 2's first 200 train rows, on the
+    card and on the CPU: equal within ``DISTILL_REL_TOL`` relative."""
     from clsurvey_torch.engine.train import state_from_model
     from clsurvey_torch.methods.lwf import LwFRule
 
     rule = LwFRule()
-    images = manager.dataset.get_task_dataset(4).train.images[:200]
+    images = manager.dataset.get_task_dataset(2).train.images[:200]
 
     def run(ctx):
         mstate = rule.init_state(None, {"lambda": 1.0}, ctx,
@@ -793,8 +861,8 @@ def check_distillation(manager, teacher_model: dict, model: dict) -> None:
             return float(rule.distill_term(ctx, state.trainable, feats,
                                            (x, None), mstate))
 
-    log("distillation term on 200 rows, three previous heads:")
-    value = _on_both_devices(manager, rule, 4, run)
+    log("distillation term on 200 rows, one previous head:")
+    value = _on_both_devices(manager, rule, 2, run)
     log(f"distillation term, card vs CPU: {value['cuda']:.7g} vs "
         f"{value['cpu']:.7g} (tolerance {DISTILL_REL_TOL:g} relative)")
     if not value["cpu"] > 0 or abs(value["cuda"] - value["cpu"]) > \
@@ -834,6 +902,342 @@ def check_mode_fisher(manager, base_model: dict) -> None:
     if not worst <= IMPORTANCE_REL_TOL * top:
         raise AssertionError("mode-IMM Fisher: the card differs from the "
                              "CPU")
+
+
+MEM_PER_TASK = 1024  # scripts/run_timing_mode.py's for GEM and ICARL
+REHEARSAL_METHODS = tuple(
+    (m, ["--static_hyperparams", str(MEM_PER_TASK)]) for m in (
+        "GEM", "ICARL", "finetuning_rehearsal_partial_mem",
+        "finetuning_rehearsal_full_mem")) + (("packnet", []),)
+NEG_INF = -1e10
+
+
+def phase_rehearsal(root: str, card: str) -> tuple[dict, list]:
+    """GEM and iCaRL (wrapping their own SI base model of
+    ``REHEARSAL_DS``), the two replay baselines and PackNet, each through
+    the timing_mode CLI with ``--test`` on the card at full width, three
+    tasks, counters zeroed before each. Checks the memories, exemplar
+    stores and masks in the best models, the result dicts, and GEM's
+    projected gradient, one iCaRL NCM entry and one PackNet masked eval on
+    the card against the CPU. Returns ({method: launches}, the batch sizes
+    the kernels saw)."""
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.utils import config
+
+    si_base_model(root, card, REHEARSAL_DS)
+    checks = {"GEM": check_gem, "ICARL": check_icarl,
+              "finetuning_rehearsal_partial_mem": check_replay,
+              "finetuning_rehearsal_full_mem": check_replay,
+              "packnet": check_packnet}
+    all_launches, seen = {}, set()
+    for method, extra in REHEARSAL_METHODS:
+        os.environ["CLSURVEY_ROOT"] = root
+        config.set_config(None)
+        torch.cuda.reset_peak_memory_stats()
+        manager, launches, wall = run_method(
+            method, ["--max_attempts_per_task", str(MAX_ATTEMPTS)] + extra,
+            ds=REHEARSAL_DS)
+        peak = torch.cuda.max_memory_allocated()
+        batches = sorted(set().union(*_kernels.BATCHES.values()))
+        seen.update(batches)
+        all_launches[method] = launches
+        matrix = eval_matrix(manager)
+        extra_record = checks[method](manager, matrix, card)
+        log(json.dumps({"rehearsal": method, "seconds": wall,
+                        "max_memory_allocated": peak,
+                        "launches": launches, "batches": batches,
+                        "eval_matrix": matrix, **extra_record,
+                        "card": card}))
+    log(f"rehearsal: the kernels saw batch sizes {sorted(seen)}")
+    return all_launches, sorted(seen)
+
+
+def _phase_records(manager, method: str, card: str,
+                   tasks=(2, 3)) -> None:
+    for task in tasks:
+        log(json.dumps({**phase2_task(manager, method, task)[2],
+                        "card": card}))
+
+
+def check_gem(manager, matrix, card) -> dict:
+    """Every task's best model carries the memory: task t's and the earlier
+    buffers full (1024 rows each), the later ones empty; the share of
+    projected steps per task; then the projected gradient of task 3's first
+    batch on the card against the CPU, with and without batch-norm."""
+    from clsurvey_torch.utils import io
+
+    _phase_records(manager, "GEM", card)
+    share = {}
+    for t in (1, 2, 3):
+        exp_dir = manager.task_training_dir(t, create=False)
+        mem = io.load(os.path.join(exp_dir, "best_model.pth.tar"))[
+            "method_aux"]["memory"]
+        want = [MEM_PER_TASK] * t + [0] * (3 - t)
+        if list(mem["mem_count"]) != want or mem["mem_images"].shape != \
+                (3, MEM_PER_TASK, *manager.dataset.input_size, 3):
+            raise AssertionError(f"GEM task {t}: memory counts "
+                                 f"{list(mem['mem_count'])}, not {want}")
+        if t > 1:
+            with open(os.path.join(exp_dir, "error_history.json")) as f:
+                per_epoch = json.load(f)["rule_metrics"]["projected"]
+            share[t] = sum(per_epoch) / len(per_epoch)
+    log(f"GEM: share of projected steps per task {share}")
+    check_gem_projection(manager)
+    return {"projected_share": share}
+
+
+def check_gem_projection(manager) -> None:
+    """GEM's gradient of task 3's first 200 train rows with the memory of
+    task 2's best model (two past tasks of 1024 rows, a two-constraint QP),
+    on the card (kernels A, B1, B2) and on the CPU (plain versions), in the
+    chunks GEM's run uses: for that model (one pass of 1024 rows a task)
+    and for ``BN_MODEL`` from random weights (chunks of 128 rows; card vs
+    CPU on the first ``GEM_BN_COMPARE_ROWS`` rows of each memory, which
+    saves the CPU 12 of its 17 passes)."""
+    from clsurvey_torch.models.registry import (init_model_state,
+                                                parse_model_name)
+    from clsurvey_torch.utils import io
+
+    model = io.load(manager.best_model_path(2, create=False))
+    gem_step(manager, model, MEM_PER_TASK)
+    seq, run_spec = manager.dataset, manager.model_spec
+    manager.model_spec = parse_model_name("", BN_MODEL, seq.input_size)
+    try:
+        gem_step(manager, {**init_model_state(
+            manager.model_spec, 0, manager.max_tasks,
+            seq.max_classes_per_task,
+            seq.class_count_list() + [0] * (manager.max_tasks
+                                           - seq.task_count)),
+            "method_aux": model["method_aux"]}, GEM_BN_COMPARE_ROWS)
+    finally:
+        manager.model_spec = run_spec
+
+
+GEM_BN_COMPARE_ROWS = 256  # two 128-row chunks a past task
+
+
+def gem_step(manager, model: dict, compare_rows: int) -> None:
+    """One GEM step of task 3 under ``model`` and ``manager.model_spec`` on
+    both devices, with the first ``compare_rows`` rows of each memory and
+    one set of dropout keep-masks (drawn on the CPU) for both: the
+    projected gradients within 1e-3 of the CPU's largest entry and the same
+    projection decision. On the card, with the whole memory, also the
+    launches and peak memory of one step, and the device and event time of
+    the step and of the projection alone."""
+    from clsurvey_torch.engine.train import Engine, state_from_model
+    from clsurvey_torch.methods import rehearsal
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.ops.qp import gem_project_if_violating
+
+    spec = manager.model_spec
+    train = manager.dataset.get_task_dataset(3).train
+    chunk = rehearsal.gem_chunk_rows(MEM_PER_TASK, spec.batch_norm)
+    rule = rehearsal.GEMRule(MEM_PER_TASK, mem_batch=chunk)
+    memory = model["method_aux"]["memory"]
+    compared = {**memory,
+                "mem_images": memory["mem_images"][:, :compare_rows],
+                "mem_labels": memory["mem_labels"][:, :compare_rows],
+                "mem_count": memory["mem_count"].clip(max=compare_rows)}
+
+    def run(ctx):
+        masks_gen = torch.Generator().manual_seed(0)
+
+        def keep(n):
+            if not spec.uses_dropout:
+                return None
+            return [torch.randint(0, 2, (n, int(d)), dtype=torch.uint8,
+                                  generator=masks_gen).to(ctx.device)
+                    for d in spec.classifier_dims]
+
+        rule.draw = lambda ctx_, gen, n: (None, keep(n))  # no flips
+        batch = (ctx.preprocess(torch.from_numpy(train.images[:200]).to(
+            ctx.device)), torch.from_numpy(train.labels[:200]).to(
+                ctx.device).long())
+        base_fn = functools.partial(Engine(ctx)._base_loss_and_grads,
+                                    dropout_masks=keep(200))
+
+        def step_with(mem):
+            mstate = rule.init_state(None, {"margin": 1.0}, ctx, memory=mem)
+            state = state_from_model(model, mstate, ctx.device)
+            return state, mstate, lambda: rule.compute_grads(
+                ctx, state.trainable, state.batch_stats, batch, mstate,
+                base_fn)
+
+        _, grads, _, metrics = step_with(compared)[2]()
+        out = {"grad": rehearsal._flat(grads).cpu(),
+               "projected": float(metrics["projected"])}
+        if ctx.device.type == "cuda":
+            state, mstate, step = step_with(memory)
+            _kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            _, grads, _, _ = step()
+            out["launches"] = dict(_kernels.LAUNCHES)
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            out["step_ms"] = time_ms(step, iters=3, warmup=1)
+            g = rehearsal._flat(grads).detach()
+            G = rule.memory_grads(ctx, state.trainable, state.batch_stats,
+                                  mstate)
+            margin = mstate["hyper"]["margin"]
+            out["qp_ms"] = time_ms(
+                lambda: gem_project_if_violating(g, G, margin), iters=10)
+        return out
+
+    what = (f"{spec.name}, task 3, batch 200, 2 memories of "
+            f"{MEM_PER_TASK} rows in chunks of {chunk}")
+    log(f"GEM gradient of task 3's first batch ({what}; card vs CPU on "
+        f"{compare_rows} rows a memory):")
+    out = _on_both_devices(manager, rule, 3, run)
+    top = float(out["cpu"]["grad"].abs().max())
+    diff = float((out["cuda"]["grad"] - out["cpu"]["grad"]).abs().max())
+    log(json.dumps({
+        "gem_step": what, "compared_rows": compare_rows,
+        "projected": {d: out[d]["projected"] for d in out},
+        "max_abs_diff": diff, "largest": top,
+        "launches_per_step": out["cuda"]["launches"],
+        "max_memory_allocated": out["cuda"]["max_memory_allocated"],
+        **{f"{part}_{clock}_ms": ms for part in ("step", "qp")
+           for clock, ms in zip(("device", "event"),
+                                out["cuda"].get(f"{part}_ms", ()))}}))
+    if not diff <= 1e-3 * top or \
+            out["cpu"]["projected"] != out["cuda"]["projected"]:
+        raise AssertionError(f"GEM's projected gradient on the card differs "
+                             f"from the CPU's ({spec.name})")
+
+
+def check_icarl(manager, matrix, card) -> dict:
+    """The exemplar store after each task: K // classes seen rows per class
+    (153, then 76, then 51 of K = 3072 over 20-class tasks), in class
+    order, each row's targets finite over the heads of its herding task and
+    -1e10 beyond, padded to the full width; then entry (ref task 1, model
+    3) by NCM on the card and on the CPU against the matrix."""
+    import numpy as np
+
+    from clsurvey_torch.utils import io
+
+    _phase_records(manager, "ICARL", card)
+    c = manager.dataset.class_count_list()[0]
+    per_class = {t: 3 * MEM_PER_TASK // (c * t) for t in (1, 2, 3)}
+    paths = {1: manager.best_model_path(1, create=False)}
+    for t in (2, 3):
+        paths[t] = os.path.join(manager.task_training_dir(t, create=False),
+                                "best_model_postprocessed.pth.tar")
+    for t, path in paths.items():
+        ex = io.load(path)["method_aux"]["exemplars"]
+        n = int(ex["count"])
+        labels = np.asarray(ex["labels"])[:n]
+        counts = np.bincount(labels, minlength=c * t)
+        targets = np.asarray(ex["targets"])[:n]
+        width = c * (np.asarray(ex["task_ids"])[:n] + 1)
+        inside = np.arange(3 * c)[None, :] < width[:, None]
+        if n != c * t * per_class[t] or set(counts) != {per_class[t]} \
+                or targets.shape[1] != 3 * c \
+                or not np.isfinite(targets[inside]).all() \
+                or not (targets[~inside] == np.float32(NEG_INF)).all() \
+                or list(labels) != sorted(labels):
+            raise AssertionError(f"iCaRL task {t}: exemplar store of {n} "
+                                 f"rows, per-class counts {set(counts)}")
+    log(f"iCaRL: exemplars per class {per_class} (store of "
+        f"{3 * MEM_PER_TASK})")
+    check_ncm_entry(manager, paths[3], matrix)
+    return {"exemplars_per_class": per_class}
+
+
+def check_ncm_entry(manager, model_path: str, matrix: list) -> None:
+    """Entry (ref task 1, model 3) of iCaRL's matrix again, NCM heads and
+    all, on the card and on the CPU: each within one test image of the
+    matrix."""
+    n_test = len(manager.dataset.get_task_dataset(1).test.labels)
+    acc = {}
+    for dev in ("cpu", "cuda"):
+        manager.args.device = dev
+        t0 = time.perf_counter()
+        acc[dev] = 100 * manager.method.inference_eval(manager, model_path,
+                                                       1, 3)
+        log(f"  iCaRL NCM entry on {dev}: {acc[dev]:.4f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+    manager.args.device = "cuda"
+    log(f"iCaRL NCM entry (ref task 1, model 3): card {acc['cuda']:.4f}, "
+        f"CPU {acc['cpu']:.4f}, matrix {matrix[0][-1]:.4f}")
+    if max(abs(a - matrix[0][-1]) for a in acc.values()) > \
+            100.0 / n_test + 1e-6:
+        raise AssertionError("iCaRL's NCM entry differs by more than one "
+                             "test image")
+
+
+def check_replay(manager, matrix, card) -> dict:
+    """Every task's best model (the LR grid's winner) carries the memory:
+    the buffers of the tasks so far full, the later ones empty."""
+    from clsurvey_torch.utils import io
+
+    for t in (1, 2, 3):
+        mem = io.load(manager.best_model_path(t, create=False))[
+            "method_aux"]["memory"]
+        want = [MEM_PER_TASK] * t + [0] * (3 - t)
+        if list(mem["mem_count"]) != want:
+            raise AssertionError(f"{manager.method.name} task {t}: memory "
+                                 f"counts {list(mem['mem_count'])}")
+    return {"task_seconds": manager.extras["task_seconds"]}
+
+
+def check_packnet(manager, matrix, card) -> dict:
+    """Per task, the Phase-2 best model's masks: owners in {0..t}; the task's
+    weights exactly those its Phase-1 winner keeps when pruned at one of
+    the attempts' percentages (none below that cutoff left); every pruned
+    weight exactly 0. Then entry (ref task 1, model 3)'s logits with task
+    1's mask applied, on the card against the CPU."""
+    import glob
+
+    from clsurvey_torch.models.convert import params_from_jax
+    from clsurvey_torch.ops import masks as masks_lib
+    from clsurvey_torch.utils import io, paths
+
+    _phase_records(manager, "packnet", card, tasks=(1, 2, 3))
+    capacity = {}
+    for t in (1, 2, 3):
+        model = io.load(manager.best_model_path(t, create=False))
+        masks = params_from_jax(model["method_aux"]["masks"], dtype=None)
+        params = params_from_jax(model["params"])
+        (ft_path,) = glob.glob(os.path.join(
+            manager.task_dir(t, create=False), paths.LR_GRID_DIRNAME, "*",
+            paths.BEST_MODEL_FILENAME))
+        ft = io.load(ft_path)
+        ft_masks = params_from_jax(ft["method_aux"]["masks"], dtype=None)
+        repruned = [masks_lib.prune_masks(params_from_jax(ft["params"]),
+                                          ft_masks, t, 0.9 * 0.5 ** a)[1]
+                    for a in range(MAX_ATTEMPTS)]
+        maskable = [k for k, m in masks.items() if m.dim()]
+        if any(int(masks[k].max()) > t for k in maskable) \
+                or not any(all(torch.equal(r[k], masks[k]) for k in maskable)
+                           for r in repruned) \
+                or any(bool((params[k][masks[k] == 0] != 0).any())
+                       for k in maskable):
+            raise AssertionError(f"PackNet task {t}: masks or pruned "
+                                 f"weights are off")
+        capacity[t] = masks_lib.capacity_report(masks, t)
+    log(f"PackNet: capacity per owner after each task {capacity}")
+    check_packnet_logits(manager)
+    return {"capacity": capacity}
+
+
+def check_packnet_logits(manager) -> None:
+    """Task 3's PackNet model with task 1's mask applied: logits of task
+    1's test images on the card and on the CPU, within ``LOGITS_TOL``."""
+    from clsurvey_torch.methods.packnet import load_with_masks
+    from clsurvey_torch.models.convert import params_from_jax, params_to_jax
+    from clsurvey_torch.ops import masks as masks_lib
+
+    model, masks = load_with_masks(manager.best_model_path(3, create=False),
+                                   "cpu")
+    masked = {**model, "params": params_to_jax(masks_lib.apply_eval_mask(
+        params_from_jax(model["params"]), masks, 1))}
+    test = manager.dataset.get_task_dataset(1).test
+    logits = {dev: _logits_on(manager, masked, test.images, 0, dev)
+              for dev in ("cpu", "cuda")}
+    diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    log(f"PackNet masked eval (ref task 1, model 3): card vs CPU logits max "
+        f"|diff| {diff:.3g} on {len(test.labels)} test images")
+    torch.testing.assert_close(logits["cuda"], logits["cpu"],
+                               rtol=LOGITS_TOL, atol=LOGITS_TOL)
 
 
 def phase_protocol(card: str) -> None:
@@ -910,7 +1314,8 @@ def phase_protocol(card: str) -> None:
                      "calls": e.count} for e in top]}))
 
 
-PHASES = ("card", "kernels", "cli", "framework", "methods", "protocol")
+PHASES = ("card", "kernels", "cli", "framework", "methods", "rehearsal",
+          "protocol")
 
 
 def main(argv=None) -> int:
@@ -930,6 +1335,15 @@ def main(argv=None) -> int:
         return 1
     import clsurvey_torch  # noqa: F401  (fail before printing anything)
 
+    # one npz cache of the synthetic tasks for the whole run: a task is
+    # generated once (about 5 s of host numpy at 64 px), not once per CLI
+    # run that touches it
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["CLSURVEY_SYNTH_CACHE"] = cache
+        return run(phases)
+
+
+def run(phases: list) -> int:
     card = card_line()
 
     def timed(name, run, *args):
@@ -944,6 +1358,7 @@ def main(argv=None) -> int:
     timed("card", phase_card, card)
     # None: the phase did not run
     checks = launches = fw_launches = method_launches = None
+    reh_launches = None
     if "kernels" in phases:
         checks = timed("kernels", phase_kernels)
     if "cli" in phases:
@@ -959,6 +1374,18 @@ def main(argv=None) -> int:
             if "methods" in phases:
                 method_launches = timed("methods", phase_methods, base_path,
                                         card)
+    if "rehearsal" in phases:
+        with tempfile.TemporaryDirectory() as root:
+            reh_launches, seen = timed("rehearsal", phase_rehearsal, root,
+                                       card)
+        held = set(checks["held_batches"]) if checks else set()
+        late = sorted(set(seen) - held - {PREPROCESS_SHAPE[0]})
+        if late:  # a size the kernels phase did not hold: hold it now
+            check_batches(torch.Generator(device="cuda").manual_seed(1),
+                          late)
+            log(f"kernels agree at the rehearsal's other batch sizes {late}")
+            if checks:
+                checks["held_batches"] = sorted(held | set(late))
     if "protocol" in phases:
         timed("protocol", phase_protocol, card)
     if checks is not None:
@@ -976,7 +1403,10 @@ def main(argv=None) -> int:
              "launches_framework": fw_launches and {
                  m: n[name] for m, n in fw_launches.items()},
              "launches_methods": method_launches and {
-                 m: n[name] for m, n in method_launches.items()}}
+                 m: n[name] for m, n in method_launches.items()},
+             "launches_rehearsal": reh_launches and {
+                 m: n[name] for m, n in reh_launches.items()},
+             "held_batches": checks["held_batches"]}
             for name in sources]}))
     if set(phases) >= set(PHASES):
         log(json.dumps({"ok": True, "device": {

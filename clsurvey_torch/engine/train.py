@@ -206,7 +206,7 @@ class Engine:
         self.ctx = ctx
 
     def _base_loss_and_grads(self, trainable, batch_stats, batch, mstate,
-                             dropout_masks=None):
+                             dropout_masks=None, gen=None):
         ctx = self.ctx
         x, y = batch
         feats, new_bs = ctx.forward_feats(trainable["params"], batch_stats,
@@ -214,7 +214,8 @@ class Engine:
         logits = ctx.task_logits(trainable, feats)
         ce = F.cross_entropy(logits, y)
         extra = ctx.update_rule.extra_loss(ctx, trainable, feats, batch,
-                                           mstate, batch_stats=batch_stats)
+                                           mstate, batch_stats=batch_stats,
+                                           gen=gen)
         loss = ce + extra
         grads = torch.autograd.grad(loss, tree_leaves(trainable))
         with torch.no_grad():
@@ -223,7 +224,11 @@ class Engine:
                 new_bs, {"loss": ce.detach(), "acc": acc})
 
     def _train_step(self, state: TrainState, x_u8, y, lr: float,
-                    flip_mask=None, dropout_masks=None):
+                    flip_mask=None, dropout_masks=None, gen=None):
+        """``gen`` is the epoch's device generator: the rule's hooks draw
+        their own randomness from it (rehearsal: exemplar rows, flip and
+        dropout masks of the replayed rows), after the step's flip and
+        dropout masks."""
         ctx = self.ctx
         rule = ctx.update_rule
         x = ctx.preprocess(x_u8, flip_mask)
@@ -232,11 +237,11 @@ class Engine:
         # a rule may take over the gradient computation (GEM's projection
         # needs per-memory gradients); it is handed the base computation
         base = functools.partial(self._base_loss_and_grads,
-                                 dropout_masks=dropout_masks)
+                                 dropout_masks=dropout_masks, gen=gen)
         if hasattr(rule, "compute_grads"):
             loss, grads, new_bs, metrics = rule.compute_grads(
                 ctx, state.trainable, state.batch_stats, batch,
-                state.mstate, base)
+                state.mstate, base, gen=gen)
         else:
             loss, grads, new_bs, metrics = base(
                 state.trainable, state.batch_stats, batch, state.mstate)
@@ -288,8 +293,10 @@ class Engine:
         """One epoch over ``perm`` (truncated to whole batches). ``gen``
         draws the per-sample flip masks on the device (unused without
         augmentation) and, for a dropout model, each step's keep-masks
-        (a dropout model therefore needs ``gen``). Metrics are means of the per-batch CE and
-        accuracy."""
+        (a dropout model therefore needs ``gen``); the rule's hooks draw
+        from it too. Metrics are means over the batches of the per-batch
+        CE, accuracy and whatever else the rule reports (GEM: the share of
+        projected steps)."""
         ctx = self.ctx
         n = int(perm.shape[0])
         batch_size = min(int(batch_size), n)
@@ -297,7 +304,7 @@ class Engine:
         if steps == 0:
             raise ValueError("an empty permutation cannot fill one batch")
         perm = torch.as_tensor(perm)[: steps * batch_size].to(ctx.device)
-        losses, accs = [], []
+        per_step: dict = {}
         for i in range(steps):
             idx = perm[i * batch_size: (i + 1) * batch_size]
             x = images.index_select(0, idx)
@@ -307,11 +314,10 @@ class Engine:
                     if ctx.augment else None)
             state, metrics = self._train_step(
                 state, x, y, lr, flip,
-                ctx.draw_dropout_masks(batch_size, gen))
-            losses.append(metrics["loss"])
-            accs.append(metrics["acc"])
-        return state, {"loss": torch.stack(losses).mean(),
-                       "acc": torch.stack(accs).mean()}
+                ctx.draw_dropout_masks(batch_size, gen), gen=gen)
+            for k, v in metrics.items():
+                per_step.setdefault(k, []).append(v)
+        return state, {k: torch.stack(v).mean() for k, v in per_step.items()}
 
     def evaluate(self, trainable, batch_stats, images, labels,
                  batch_size: int, predict: str | Callable = "task",
@@ -496,6 +502,7 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
     best_acc, val_beat_counts = 0.0, 0
     best_model = None
     error_history: list = []  # per-epoch val error %, dumped as JSON
+    rule_history: dict = {}   # per-epoch means of the rule's own metrics
     history_path = os.path.join(job.exp_dir, "error_history.json")
 
     if job.resume and io.exists(ckpt_path):
@@ -508,11 +515,13 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
             best_model = io.load(best_path)
         if os.path.isfile(history_path):
             with open(history_path) as f:
-                error_history = json.load(f).get("error_history", [])
+                history = json.load(f)
             # the history file is written every epoch but the state ckpt
             # only every saving_freq: truncate so re-run epochs don't
             # append duplicate entries (index == epoch must hold)
-            error_history = error_history[:start_epoch]
+            error_history = history.get("error_history", [])[:start_epoch]
+            rule_history = {k: v[:start_epoch] for k, v in
+                            history.get("rule_metrics", {}).items()}
         log(f"=> resumed epoch {start_epoch} lr={lr:g} best={best_acc:.4f}")
 
     # host snapshot of the task-start model: the fallback for runs that
@@ -553,22 +562,28 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
         state, metrics = engine.train_epoch(
             state, train_images, train_labels, perm, flip_gen, lr,
             job.batch_size)
-        train_loss = float(metrics["loss"])
-        train_acc = float(metrics["acc"])
+        train_loss = float(metrics.pop("loss"))
+        train_acc = float(metrics.pop("acc"))
+        # the rule's own per-epoch means (GEM's projected share)
+        rule_metrics = {k: float(v) for k, v in metrics.items()}
 
         val_acc, _, _ = engine.evaluate(
             state.trainable, state.batch_stats, val_images, val_labels,
             job.eval_batch_size)
         log(f"epoch {epoch}: loss={train_loss:.4f} "
-            f"train_acc={train_acc:.4f} val_acc={val_acc:.4f} lr={lr:g}")
+            f"train_acc={train_acc:.4f} val_acc={val_acc:.4f} lr={lr:g}"
+            + "".join(f" {k}={v:.4f}" for k, v in rule_metrics.items()))
 
         # per-epoch error history JSON next to the checkpoint
         # (ref:src/methods/packnet/main.py:287-291 dumps error_history)
         error_history.append(100.0 * (1.0 - val_acc))
+        for k, v in rule_metrics.items():
+            rule_history.setdefault(k, []).append(v)
         if job.save_models_mode:
             with open(history_path, "w") as f:
                 json.dump({"error_history": error_history, "lr": lr,
-                           "train_loss": train_loss}, f)
+                           "train_loss": train_loss,
+                           "rule_metrics": rule_history}, f)
 
         if not np.isfinite(train_loss) or train_loss > DIVERGENCE_LOSS_BOUND:
             # NaN guard aborts training (ref:src/methods/SI/train_SI.py:242);

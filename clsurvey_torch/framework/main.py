@@ -129,7 +129,9 @@ def main(args: RunArgs):
     spec = models_lib.parse_model_name(
         cfg.models_root_path, args.model_name, dataset.input_size)
 
-    if args.max_task_count is None:
+    # timing_mode asks for 4 tasks: a shorter sequence runs all it has
+    if args.max_task_count is None or \
+            args.max_task_count > dataset.task_count:
         args.max_task_count = dataset.task_count
     if hasattr(method, "train_args_overwrite"):
         method.train_args_overwrite(args)

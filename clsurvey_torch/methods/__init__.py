@@ -1,23 +1,19 @@
 """Method registry (ref:src/methods/method.py:35-78 ``parse``).
 
-Ported so far: the baselines ``finetuning`` and ``joint``, the importance
-regularisers ``EWC``, ``MAS`` and ``SI``, the distillation methods ``LWF``
-and ``EBLL``, and IMM, whose mode is parsed from the name (``mean_IMM`` /
-``mode_IMM``). Any other name of the JAX package raises, naming its ROADMAP
-item."""
+Ported so far: the baselines ``finetuning``, ``joint`` and the two replay
+baselines ``finetuning_rehearsal_partial_mem`` / ``_full_mem``, the
+importance regularisers ``EWC``, ``MAS`` and ``SI``, the distillation
+methods ``LWF`` and ``EBLL``, IMM, whose mode is parsed from the name
+(``mean_IMM`` / ``mode_IMM``), the rehearsal methods ``GEM`` and ``ICARL``,
+and ``packnet``. Any other name of the JAX package raises, naming its
+ROADMAP item."""
 
 from __future__ import annotations
 
 from clsurvey_torch.methods.base import Category, Method, UpdateRule  # noqa: F401
 
 # method name of the JAX package -> its item in ROADMAP.md, queue 1
-_NOT_PORTED = {
-    "GEM": "item 7: rehearsal", "ICARL": "item 7: rehearsal",
-    "finetuning_rehearsal_full_mem": "item 7: rehearsal",
-    "finetuning_rehearsal_partial_mem": "item 7: rehearsal",
-    "packnet": "item 8: PackNet", "HAT": "item 9: HAT",
-    "pathnet": "item 10: PathNet",
-}
+_NOT_PORTED = {"HAT": "item 9: HAT", "pathnet": "item 10: PathNet"}
 
 
 def parse(method_name: str) -> Method:
@@ -25,10 +21,14 @@ def parse(method_name: str) -> Method:
     from clsurvey_torch.methods.ebll import EBLL
     from clsurvey_torch.methods.finetune import Finetune, Joint
     from clsurvey_torch.methods.lwf import LWF
+    from clsurvey_torch.methods.packnet import PackNet
     from clsurvey_torch.methods.reg_based import EWC, MAS, SI
+    from clsurvey_torch.methods.rehearsal import (
+        GEM, ICARL, FinetuneRehearsalFullMem, FinetuneRehearsalPartialMem)
 
-    exact = {Finetune().name: Finetune, Joint().name: Joint,
-             "EWC": EWC, "MAS": MAS, "SI": SI, "LWF": LWF, "EBLL": EBLL}
+    exact = {cls().name: cls for cls in (
+        Finetune, Joint, EWC, MAS, SI, LWF, EBLL, GEM, ICARL, PackNet,
+        FinetuneRehearsalPartialMem, FinetuneRehearsalFullMem)}
     if method_name in exact:
         return exact[method_name]()
     item = _NOT_PORTED.get(method_name)

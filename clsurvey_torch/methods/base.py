@@ -59,12 +59,21 @@ class UpdateRule:
                           for k, v in hyperparams.items()}}
 
     def extra_loss(self, ctx: Any, trainable: Any, feats: torch.Tensor,
-                   batch: Any, mstate: Any,
-                   batch_stats: Any = None) -> torch.Tensor | float:
-        """Differentiated extra loss term (distillation etc.).
+                   batch: Any, mstate: Any, batch_stats: Any = None,
+                   gen: torch.Generator | None = None
+                   ) -> torch.Tensor | float:
+        """Differentiated extra loss term (distillation, replay).
         ``batch_stats`` are the current model's BN stats for auxiliary
-        forwards (replay/distillation)."""
+        forwards (replay/distillation); ``gen`` is the epoch's device
+        generator, the source of the rule's own draws (exemplar rows, their
+        flip and dropout masks). A rule that draws nothing ignores it, so
+        the engine's stream of draws is the same as without it."""
         return 0.0
+
+    # Optional: ``compute_grads(ctx, trainable, batch_stats, batch, mstate,
+    # base, gen=None) -> (loss, grads, new_batch_stats, metrics)`` takes
+    # over the gradient computation; ``base(trainable, batch_stats, batch,
+    # mstate)`` is the engine's own (GEM projects its result).
 
     def penalty_grads(self, trainable: Any, mstate: Any) -> Any | None:
         """Gradient of the importance penalty, added to CE grads *before*

@@ -192,7 +192,7 @@ class EBLLRule(LwFRule):
         return state
 
     def extra_loss(self, ctx, trainable, feats, batch, mstate,
-                   batch_stats=None):
+                   batch_stats=None, gen=None):
         if ctx.n_tasks - 1 == 0:
             return 0.0
         x, _ = batch

@@ -84,11 +84,10 @@ class LwFRule(UpdateRule):
         return mstate["hyper"][self.LAMBDA_KEY] * dist
 
     def extra_loss(self, ctx, trainable, feats, batch, mstate,
-                   batch_stats=None):
-        """The JAX rule also takes an ``rng``, which it hands only to the
-        teacher's forward; that forward runs with ``train=False`` and draws
-        nothing, so the port's hook has no such argument and loses
-        nothing."""
+                   batch_stats=None, gen=None):
+        """The JAX rule hands its ``rng`` only to the teacher's forward;
+        that forward runs with ``train=False`` and draws nothing, so this
+        rule draws nothing from ``gen`` either."""
         if ctx.n_tasks - 1 == 0:
             return 0.0
         return self.distill_term(ctx, trainable, feats, batch, mstate)

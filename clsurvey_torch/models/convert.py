@@ -14,8 +14,12 @@ collection ``{'features': {'bn_<i>': {'mean', 'var'}}}``, become the flat
 ``{'features.bn_<i>.mean', 'features.bn_<i>.var'}`` dict the backbone takes.
 
 Both functions take any tree shaped like the backbone's weights: a method's
-importance trees (``omega``, ``theta_star``, SI's ``w``) travel inside a
-model's ``method_aux`` through them, in the same layouts as the weights."""
+importance trees (``omega``, ``theta_star``, SI's ``w``) and PackNet's uint8
+ownership masks (with their 0-d sentinels for biases and batch-norm leaves)
+travel inside a model's ``method_aux`` through them, in the same layouts as
+the weights. ``params_from_jax`` casts to float32 unless it is told to keep
+the dtype (``dtype=None``); ``params_to_jax`` keeps every dtype numpy has
+(bfloat16 becomes float32)."""
 
 from __future__ import annotations
 
@@ -26,14 +30,16 @@ import torch.nn as nn
 _SUFFIX = {"kernel": "weight", "bias": "bias", "scale": "scale"}
 
 
-def params_from_jax(tree: dict, device=None) -> dict[str, torch.Tensor]:
-    """JAX-layout numpy pytree -> ``{torch parameter name: tensor}``."""
+def params_from_jax(tree: dict, device=None,
+                    dtype=np.float32) -> dict[str, torch.Tensor]:
+    """JAX-layout numpy pytree -> ``{torch parameter name: tensor}``, cast
+    to ``dtype`` (None keeps each leaf's)."""
     out = {}
     for group, layers in tree.items():
         for layer, leaves in layers.items():
             for leaf, value in leaves.items():
-                a = np.asarray(value, dtype=np.float32)
-                if leaf == "kernel":
+                a = np.asarray(value, dtype=dtype)
+                if leaf == "kernel" and a.ndim > 1:
                     a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
                 t = torch.tensor(a, device=device)  # a copy, never an alias
                 if t.dim() == 4:
@@ -51,11 +57,12 @@ def params_to_jax(params: dict[str, torch.Tensor] | nn.Module) -> dict:
     tree: dict = {}
     for name, t in params.items():
         group, layer, suffix = name.split(".")
-        a = t.detach().float().cpu().numpy()
+        a = t.detach().cpu()
+        a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
         if suffix == "weight":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         tree.setdefault(group, {}).setdefault(layer, {})[inverse[suffix]] = \
-            np.ascontiguousarray(a)
+            np.ascontiguousarray(a) if a.ndim else a  # keeps a 0-d leaf
     return tree
 
 

@@ -14,6 +14,7 @@ model/gem.py:199-204, adopted globally)."""
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -124,6 +125,19 @@ def forward(bank: dict, feats: torch.Tensor, task: int) -> torch.Tensor:
     return logits
 
 
+@functools.lru_cache(maxsize=64)
+def _counts_on(counts: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(counts, dtype=torch.long, device=device)
+
+
+def class_counts_on(class_counts, device) -> torch.Tensor:
+    """The bank's class counts as a long tensor on ``device``, made once
+    per device and counts: a train step never copies them from the host (a
+    copy from pageable memory waits for the device's queue to drain)."""
+    return _counts_on(tuple(int(c) for c in class_counts),
+                      torch.device(device))
+
+
 def forward_all(bank: dict, feats: torch.Tensor,
                 n_tasks: int) -> torch.Tensor:
     """All heads at once: (B, n_tasks, C) via a single einsum
@@ -131,8 +145,7 @@ def forward_all(bank: dict, feats: torch.Tensor,
     kernel = bank["kernel"][:n_tasks]
     bias = bank["bias"][:n_tasks]
     logits = torch.einsum("bf,tfc->btc", feats, kernel) + bias[None]
-    counts = torch.as_tensor(np.asarray(bank["class_counts"][:n_tasks]),
-                             device=logits.device)
+    counts = class_counts_on(bank["class_counts"][:n_tasks], logits.device)
     valid = torch.arange(logits.shape[-1],
                          device=logits.device)[None, :] < counts[:, None]
     return logits.masked_fill(~valid[None], NEG_INF)

@@ -8,7 +8,8 @@ library name carries a hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
 
 ``LAUNCHES`` counts, per kernel, the launches made by the wrappers in
-``ops/preprocess.py`` and ``ops/pool.py``; :func:`reset_launches` zeroes it.
+``ops/preprocess.py`` and ``ops/pool.py``, and ``BATCHES`` collects the
+batch sizes they were launched at; :func:`reset_launches` clears both.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ SIGNATURES = {
 }
 
 LAUNCHES = {"normalize_flip": 0, "pool_fwd": 0, "pool_bwd": 0}
+BATCHES: dict[str, set] = {name: set() for name in LAUNCHES}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -53,6 +55,7 @@ _LOCK = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        BATCHES[name].clear()
 
 
 def nvcc_path() -> str:
@@ -120,10 +123,11 @@ def lib(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def record_launch(rc: int, kernel: str) -> None:
-    """Called right after each launch: raise if it returned a CUDA error
-    code, else count it."""
+def record_launch(rc: int, kernel: str, batch: int) -> None:
+    """Called right after each launch at batch size ``batch``: raise if it
+    returned a CUDA error code, else count it."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError_t {rc}")
     LAUNCHES[kernel] += 1
+    BATCHES[kernel].add(int(batch))

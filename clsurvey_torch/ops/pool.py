@@ -77,7 +77,7 @@ def _pool_fwd_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         rc = fn(x.data_ptr(), val.data_ptr(), code.data_ptr(), b, h, w, c,
                 int(x.dtype == torch.bfloat16),
                 torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.record_launch(rc, "pool_fwd")
+    _kernels.record_launch(rc, "pool_fwd", b)
     return val, code
 
 
@@ -97,7 +97,7 @@ def _pool_bwd_cuda(g: torch.Tensor, code: torch.Tensor,
         rc = fn(g.data_ptr(), code.data_ptr(), dx.data_ptr(), b, h, w, c,
                 int(g.dtype == torch.bfloat16),
                 torch.cuda.current_stream(g.device).cuda_stream)
-    _kernels.record_launch(rc, "pool_bwd")
+    _kernels.record_launch(rc, "pool_bwd", b)
     return dx
 
 

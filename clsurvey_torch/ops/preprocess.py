@@ -94,7 +94,7 @@ def _normalize_flip_cuda(images_u8: torch.Tensor, mean, std,
                 int(dtype == torch.bfloat16),
                 *_affine_floats(tuple(mean), tuple(std)),
                 torch.cuda.current_stream(images_u8.device).cuda_stream)
-    _kernels.record_launch(rc, "normalize_flip")
+    _kernels.record_launch(rc, "normalize_flip", b)
     return out
 
 

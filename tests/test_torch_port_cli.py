@@ -13,6 +13,7 @@ import boundary.
   best models with ``method_aux`` in the JAX layout, the result dicts, and
   a tree that both ``postprocessing`` modules read; the JAX CLI continues
   from the port's base model;
+- timing_mode on a 2-task sequence trains both tasks;
 - asking for ``cuda`` without a card raises, and what is not ported yet
   raises ``NotImplementedError`` naming its ROADMAP item."""
 
@@ -126,10 +127,26 @@ def test_cuda_without_a_card_raises():
         tmain.cli(ARGV)  # --device defaults to cuda
 
 
+def test_timing_mode_runs_a_shorter_sequence_whole(two_roots):
+    """timing_mode asks for 4 tasks; on a 2-task sequence the port trains
+    both (the JAX CLI asks the data for task 3 and fails)."""
+    use, _, port_root = two_roots
+    use(port_root)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        manager = tmain.cli(ARGV[:5] + ["--runmode", "timing_mode",
+                                        "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    assert manager.args.max_task_count == 2
+    assert sorted(manager.extras["task_seconds"]) == [1, 2]
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--profile"], "item 4: profiling"),
-    (["--method_name", "GEM"], "item 7: rehearsal"),
-    (["--method_name", "packnet"], "item 8: PackNet"),
+    (["--method_name", "HAT"], "item 9: HAT"),
+    (["--method_name", "pathnet"], "item 10: PathNet"),
     (["--ds_name", "tiny"], "item 2: AlexNet and the datasets")])
 def test_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
