@@ -37,34 +37,49 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    one mode-IMM Fisher on the card against the CPU;
 6. rehearsal: on synthetic_3t_20c_64px_400n with its own SI base model,
    GEM and ICARL (1024 memories a task), the two replay baselines and
-   PackNet through the timing_mode CLI with ``--test``, counters zeroed
-   before each; checks the memories in the best models, iCaRL's exemplar
-   store (153, 76, 51 a class) and its targets, PackNet's masks against a
-   re-pruning of its Phase-1 winner and its pruned weights at exactly 0,
+   PackNet through the timing_mode CLI with ``--test`` and one attempt a
+   task, counters zeroed before each; checks the memories in the best
+   models, iCaRL's exemplar store (153, 76, 51 a class) and its targets,
+   PackNet's masks against a re-pruning of its Phase-1 winner and its
+   pruned weights at exactly 0,
    prints GEM's share of projected steps, the batch sizes the kernels saw
    and each run's peak device memory, and holds GEM's projected gradient
    at task 3 (the run's model, one pass of 1024 rows a past task, and
    small_VGG9_cl_128_128_BN_DROP from random weights, chunks of 128 rows),
    one iCaRL NCM entry and one PackNet masked eval on the card against the
    CPU;
-7. protocol: bench.py's throughput point (20k random uint8 rows, batch
+7. masks: HAT (the timing script's row: smax 800, c 2.5) and PathNet (M
+   20, N 3, ``--static_hyperparams "20;5"``: generations cut from 35 to
+   5) from scratch through the timing_mode CLI with ``--test``, two tasks
+   and up to two attempts a task, counters zeroed before each (HAT must
+   launch A, B1 and B2, PathNet A and no pool kernel); checks HAT's
+   embeddings (within +-6), that the weights ``mask_back`` blocks at task
+   2 and task 1's embedding row are bit-unchanged, prints the capacity
+   report, and holds one eval entry and one task-2 step's processed
+   gradient on the card against the CPU, with the step's launches and
+   times; checks PathNet's two best paths, that task 1's modules are
+   bit-identical in task 2's model, one eval entry card vs CPU, and times
+   one batch-64 step;
+8. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
 
-The framework and methods phases run two tasks (synthetic_2t_20c_64px_400n,
-one Phase-2 task each), the cli phase four. The kernels phase also holds
-A, B1 and B2 at batch sizes 1, 67, 128 and 1024 (``REHEARSAL_BATCHES``);
-every other size the rehearsal phase hands them (iCaRL's 144 + 56 split,
-the baselines' exemplar rows, herding and val tails) is held right after
-that phase, so every size the path used is held.
+The framework, methods and masks phases run two tasks
+(synthetic_2t_20c_64px_400n, one Phase-2 task each), the cli phase four.
+The kernels phase also holds A, B1 and B2 at batch sizes 1, 67, 128 and
+1024 (``REHEARSAL_BATCHES``); every other size the rehearsal and masks
+phases hand them (iCaRL's 144 + 56 split, the baselines' exemplar rows,
+herding and val tails, PathNet's batch of 64 and its tournament's 256-row
+eval and tail) is held right after those phases, so every size the path
+used is held.
 
 Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
 before the last is the ``{"kernels": [...]}`` record: ``launches``
 is the count of the ``cli`` run, ``launches_framework``,
-``launches_methods`` and ``launches_rehearsal`` hold each method's own
-count (in a partial run the counts are null for the phases that did not
-run), ``held_batches`` the batch sizes held against the plain versions;
-the last line is ``{"ok": true, "device": {...}}``.
+``launches_methods``, ``launches_rehearsal`` and ``launches_masks`` hold
+each method's own count (in a partial run the counts are null for the
+phases that did not run), ``held_batches`` the batch sizes held against
+the plain versions; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -139,14 +154,17 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device_ms = _device_kernel_us(prof) / 1e3 / iters
-    if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return device_ms, event_ms
+    # CUPTI now and then hands the profiler no kernel records: try again
+    # before calling it a failure
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device_ms = _device_kernel_us(prof) / 1e3 / iters
+        if device_ms > 0:
+            return device_ms, event_ms
+    raise AssertionError("the profiler saw no device time, three times")
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -509,6 +527,9 @@ FRAMEWORK_DS = "synthetic_2t_20c_64px_400n"  # two tasks: one Phase-2 task
 REHEARSAL_DS = "synthetic_3t_20c_64px_400n"  # GEM's QP: two constraints
 FRAMEWORK_METHODS = ("SI", "EWC", "MAS")
 MAX_ATTEMPTS = 2
+# one attempt a task in the rehearsal phase: the cut that keeps the whole
+# script near half its time limit since the masks phase came
+REHEARSAL_ATTEMPTS = 1
 LOGITS_TOL = 1e-4  # card vs CPU logits, absolute and relative
 IMPORTANCE_REL_TOL = 1e-3  # card vs CPU Fisher / omega, of its largest entry
 
@@ -542,11 +563,12 @@ def si_base_model(root: str, card: str, ds: str = FRAMEWORK_DS) -> str:
 
 
 def run_method(method: str, extra: list, model: str = FRAMEWORK_MODEL,
-               ds: str = FRAMEWORK_DS):
+               ds: str = FRAMEWORK_DS, required=None):
     """One method through the timing_mode CLI with ``--test``, the launch
-    counters zeroed just before and read just after; every kernel must
-    have launched. Returns (manager, launches, wall seconds); the batch
-    sizes the kernels saw stay in ``_kernels.BATCHES``."""
+    counters zeroed just before and read just after; every kernel in
+    ``required`` (default: all) must have launched. Returns (manager,
+    launches, wall seconds); the batch sizes the kernels saw stay in
+    ``_kernels.BATCHES``."""
     from clsurvey_torch.framework import main as cli_main
     from clsurvey_torch.ops import _kernels
 
@@ -560,8 +582,8 @@ def run_method(method: str, extra: list, model: str = FRAMEWORK_MODEL,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in required or launches:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in "
                                  f"{method}'s run")
     return manager, launches, wall
@@ -590,7 +612,8 @@ def eval_matrix(manager) -> list:
     return matrix
 
 
-def phase2_task(manager, method: str, task: int):
+def phase2_task(manager, method: str, task: int,
+                max_attempts: int = MAX_ATTEMPTS):
     """Task ``task`` of a two-phase method: SUCCESS token, decay state,
     best model, phase seconds. Returns (model, its directory, record for
     the log)."""
@@ -608,7 +631,7 @@ def phase2_task(manager, method: str, task: int):
                                   PHASE_TIMING_FILENAME))
     return model, exp_dir, {
         "framework": method, "task": task, **phases,
-        "attempts": min(int(hp["state"]["attempts"]) + 1, MAX_ATTEMPTS),
+        "attempts": min(int(hp["state"]["attempts"]) + 1, max_attempts),
         **hp["state"]["hyperparams"]}
 
 
@@ -935,8 +958,8 @@ def phase_rehearsal(root: str, card: str) -> tuple[dict, list]:
         config.set_config(None)
         torch.cuda.reset_peak_memory_stats()
         manager, launches, wall = run_method(
-            method, ["--max_attempts_per_task", str(MAX_ATTEMPTS)] + extra,
-            ds=REHEARSAL_DS)
+            method, ["--max_attempts_per_task", str(REHEARSAL_ATTEMPTS)]
+            + extra, ds=REHEARSAL_DS)
         peak = torch.cuda.max_memory_allocated()
         batches = sorted(set().union(*_kernels.BATCHES.values()))
         seen.update(batches)
@@ -952,11 +975,11 @@ def phase_rehearsal(root: str, card: str) -> tuple[dict, list]:
     return all_launches, sorted(seen)
 
 
-def _phase_records(manager, method: str, card: str,
-                   tasks=(2, 3)) -> None:
+def _phase_records(manager, method: str, card: str, tasks=(2, 3),
+                   max_attempts: int = REHEARSAL_ATTEMPTS) -> None:
     for task in tasks:
-        log(json.dumps({**phase2_task(manager, method, task)[2],
-                        "card": card}))
+        log(json.dumps({**phase2_task(manager, method, task,
+                                      max_attempts)[2], "card": card}))
 
 
 def check_gem(manager, matrix, card) -> dict:
@@ -1182,9 +1205,10 @@ def check_replay(manager, matrix, card) -> dict:
 def check_packnet(manager, matrix, card) -> dict:
     """Per task, the Phase-2 best model's masks: owners in {0..t}; the task's
     weights exactly those its Phase-1 winner keeps when pruned at one of
-    the attempts' percentages (none below that cutoff left); every pruned
-    weight exactly 0. Then entry (ref task 1, model 3)'s logits with task
-    1's mask applied, on the card against the CPU."""
+    the percentages the decay can reach by then (none below that cutoff
+    left); every pruned weight exactly 0. Then entry (ref task 1, model
+    3)'s logits with task 1's mask applied, on the card against the
+    CPU."""
     import glob
 
     from clsurvey_torch.models.convert import params_from_jax
@@ -1204,7 +1228,8 @@ def check_packnet(manager, matrix, card) -> dict:
         ft_masks = params_from_jax(ft["method_aux"]["masks"], dtype=None)
         repruned = [masks_lib.prune_masks(params_from_jax(ft["params"]),
                                           ft_masks, t, 0.9 * 0.5 ** a)[1]
-                    for a in range(MAX_ATTEMPTS)]
+                    # a retained attempt's decay carries to the next task
+                    for a in range(3 * REHEARSAL_ATTEMPTS)]
         maskable = [k for k, m in masks.items() if m.dim()]
         if any(int(masks[k].max()) > t for k in maskable) \
                 or not any(all(torch.equal(r[k], masks[k]) for k in maskable)
@@ -1238,6 +1263,271 @@ def check_packnet_logits(manager) -> None:
         f"|diff| {diff:.3g} on {len(test.labels)} test images")
     torch.testing.assert_close(logits["cuda"], logits["cpu"],
                                rtol=LOGITS_TOL, atol=LOGITS_TOL)
+
+
+MASK_METHODS = (
+    # the timing script's HAT row: smax 800, c 2.5 (scripts/
+    # run_timing_mode.py:47); PathNet at M 20, N 3, generations cut 35 -> 5
+    ("HAT", [], ("normalize_flip", "pool_fwd", "pool_bwd")),
+    ("pathnet", ["--static_hyperparams", "20;5"], ("normalize_flip",)))
+STEP_REL_TOL = 1e-3  # card vs CPU processed gradient, of its largest entry
+
+
+def phase_masks(root: str, card: str) -> tuple[dict, list]:
+    """HAT and PathNet from scratch, each through the timing_mode CLI with
+    ``--test`` on the card at full width, two tasks, counters zeroed
+    before each. HAT must launch A, B1 and B2; PathNet A and neither pool
+    kernel (it pools with ``F.max_pool2d``, as the JAX package pools it
+    with XLA's ``reduce_window``). Then each method's own checks. Returns
+    ({method: launches}, the batch sizes the kernels saw)."""
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.utils import config
+
+    checks = {"HAT": check_hat, "pathnet": check_pathnet}
+    all_launches, seen = {}, set()
+    for method, extra, required in MASK_METHODS:
+        os.environ["CLSURVEY_ROOT"] = root
+        config.set_config(None)
+        torch.cuda.reset_peak_memory_stats()
+        manager, launches, wall = run_method(
+            method, ["--max_attempts_per_task", str(MAX_ATTEMPTS)] + extra,
+            required=required)
+        peak = torch.cuda.max_memory_allocated()
+        batches = sorted(set().union(*_kernels.BATCHES.values()))
+        seen.update(batches)
+        if method == "pathnet" and (launches["pool_fwd"]
+                                    or launches["pool_bwd"]):
+            raise AssertionError(f"PathNet launched a pool kernel: "
+                                 f"{launches}")
+        all_launches[method] = launches
+        matrix = eval_matrix(manager)
+        _phase_records(manager, method, card, tasks=(1, 2),
+                       max_attempts=MAX_ATTEMPTS)
+        extra_record = checks[method](manager, matrix)
+        log(json.dumps({"masks": method, "seconds": wall,
+                        "max_memory_allocated": peak,
+                        "launches": launches, "batches": batches,
+                        "eval_matrix": matrix, **extra_record,
+                        "card": card}))
+    log(f"masks: the kernels saw batch sizes {sorted(seen)}")
+    return all_launches, sorted(seen)
+
+
+def _task_models(manager) -> list:
+    from clsurvey_torch.utils import io
+
+    return [io.load(manager.best_model_path(t, create=False))
+            for t in (1, 2)]
+
+
+def _mask_logits(manager, model: dict, task: int, dev: str):
+    """Logits of task 1's test images under a HAT or PathNet model, with
+    ``task``'s gates or best path and head, on ``dev``."""
+    from clsurvey_torch.engine.train import trainable_from_host
+    from clsurvey_torch.models import convert, heads
+    from clsurvey_torch.ops import preprocess as pp
+
+    seq = manager.dataset
+    images = seq.get_task_dataset(task + 1).test.images
+    net = manager.method._net(manager)
+    if model["meta"].get("hat"):
+        tr = trainable_from_host(model, dev, False,
+                                 convert.hat_params_from_jax)
+        args = (task, float(model["meta"]["smax"]))
+    else:
+        tr = trainable_from_host(model, dev, False,
+                                 convert.pathnet_params_from_jax)
+        args = (torch.as_tensor(model["method_aux"]["best_paths"][task],
+                                dtype=torch.long, device=dev),)
+    bank = {**tr["heads"], "class_counts": model["heads"]["class_counts"]}
+    with torch.no_grad():
+        x = pp.preprocess(torch.as_tensor(images).to(dev), seq.mean,
+                          seq.std)  # kernel A on the card
+        out = torch.func.functional_call(net, tr["params"], (x, *args))
+        feats = out[0] if isinstance(out, tuple) else out
+        return heads.forward(bank, feats, task).cpu()
+
+
+def check_mask_entry(manager, model: dict, matrix: list) -> None:
+    """Entry (ref task 1, model 2) again: logits on the card and on the
+    CPU within ``LOGITS_TOL``, the CPU's accuracy within one test image of
+    the matrix."""
+    labels = manager.dataset.get_task_dataset(1).test.labels
+    logits = {dev: _mask_logits(manager, model, 0, dev)
+              for dev in ("cpu", "cuda")}
+    diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    acc = float((logits["cpu"].argmax(-1).numpy() == labels).mean())
+    log(f"{manager.method.name} eval entry (ref task 1, model 2): card vs "
+        f"CPU logits max |diff| {diff:.3g} on {len(labels)} test images; "
+        f"accuracy {100 * acc:.2f} (CPU) vs {matrix[0][-1]:.2f} (matrix)")
+    torch.testing.assert_close(logits["cuda"], logits["cpu"],
+                               rtol=LOGITS_TOL, atol=LOGITS_TOL)
+    if abs(100 * acc - matrix[0][-1]) > 100.0 / len(labels) + 1e-6:
+        raise AssertionError("the eval matrix's entry differs from the "
+                             "CPU's by more than one image")
+
+
+def _hat_engine(manager, prev: dict, smax: float, dev: str):
+    """Task 2's HAT engine on ``dev``, its masks from task 1's model."""
+    from clsurvey_torch.methods import hat
+    from clsurvey_torch.models.convert import hat_params_from_jax
+
+    net = manager.method._net(manager)
+    params = hat_params_from_jax(prev["params"], dev)
+    mask_pre = hat.compute_mask_pre(params, net.emb_names, 1, smax)
+    mask_back = hat.compute_mask_back(net, params, mask_pre)
+    seq = manager.dataset
+    return hat.HATEngine(net, manager.model_spec, 1,
+                         prev["heads"]["class_counts"], seq.mean, seq.std,
+                         smax, mask_pre, mask_back, device=dev)
+
+
+def check_hat(manager, matrix) -> dict:
+    """Every embedding within +-6; wherever task 2's ``mask_back`` is 0,
+    task 2's best model equals task 1's bit for bit, and so does task 1's
+    embedding row; the capacity report; the eval entry (ref task 1, model
+    2) on the card against the CPU; then :func:`hat_step`."""
+    from clsurvey_torch.methods import hat
+    from clsurvey_torch.models.convert import hat_params_from_jax
+
+    models = _task_models(manager)
+    for t, m in enumerate(models, 1):
+        _finite_tree(m["params"], f"HAT task {t} weights")
+        worst = max(float(abs(v).max()) for k, v in m["params"].items()
+                    if k.startswith("emb_"))
+        if worst > hat.THRES_EMB:
+            raise AssertionError(f"HAT task {t}: an embedding at {worst}")
+    smax = float(models[1]["meta"]["smax"])
+    mask_back = _hat_engine(manager, models[0], smax, "cpu").mask_back
+    p1, p2 = (hat_params_from_jax(m["params"]) for m in models)
+    blocked = 0
+    for name, m in mask_back.items():
+        same = (p2[name][0].equal(p1[name][0]) if name.startswith("emb_")
+                else p2[name][m == 0].equal(p1[name][m == 0]))
+        if not same:
+            raise AssertionError(f"HAT: {name} moved where task 1 holds it")
+        blocked += int((m == 0).sum())
+    log(f"HAT: the {blocked} weights task 2 may not move, and task 1's "
+        f"embedding rows, are bit-unchanged")
+    report = hat.capacity_report(p2, 1, smax, mask_back, log=log)
+    check_mask_entry(manager, models[1], matrix)
+    return {"blocked_weights": blocked,
+            "capacity_left_avg": report.get("capacity_left/avg"),
+            **hat_step(manager, models, smax)}
+
+
+def hat_step(manager, models: list, smax: float) -> dict:
+    """One task-2 step of task 2's model on task 2's first 200 train rows
+    at s = 1/smax (an epoch's first step: smax / s = smax**2), no flips:
+    the processed gradient on the card and on the CPU, with and without
+    ``mask_back``, each leaf within ``STEP_REL_TOL`` of the largest entry
+    of its gradient without ``mask_back`` (the mask only zeroes or scales
+    entries, so that is the scale of the sums behind them); on the card
+    the launches of the step and its device and event ms."""
+    from clsurvey_torch.engine.train import tree_zeros_like
+    from clsurvey_torch.methods import hat
+    from clsurvey_torch.ops import _kernels
+
+    train = manager.dataset.get_task_dataset(2).train
+    lamb = float(manager.method.hyperparams["c"])
+    s = hat.anneal_s(smax, 0, 40)
+    grads, out = {}, {}
+    for dev in ("cpu", "cuda"):
+        engine = _hat_engine(manager, models[0], smax, dev)
+        tr = hat.hat_from_host(models[1], dev, True)
+        x = torch.from_numpy(train.images[:200]).to(dev)
+        y = torch.from_numpy(train.labels[:200]).to(dev).long()
+        mask_back = engine.mask_back
+        for blocked in (True, False):
+            engine.mask_back = mask_back if blocked else None
+            g, _ = engine.grads(tr, x, y, s, lamb)
+            grads[dev, blocked] = {
+                **{k: v.cpu() for k, v in g["params"].items()},
+                **{f"heads.{k}": v.cpu() for k, v in g["heads"].items()}}
+        engine.mask_back = mask_back
+        if dev == "cuda":
+            state = (tr, tree_zeros_like(tr))
+            step = lambda: engine.train_step(state, x, y, 1e-5, s, lamb)
+            _kernels.reset_launches()
+            step()
+            torch.cuda.synchronize()
+            out["launches_per_step"] = dict(_kernels.LAUNCHES)
+            out["step_device_ms"], out["step_event_ms"] = time_ms(
+                step, iters=10, warmup=2)
+    worst = {}
+    for blocked in (True, False):
+        for k, want in grads["cpu", blocked].items():
+            top = float(grads["cpu", False][k].abs().max())
+            diff = float((grads["cuda", blocked][k] - want).abs().max())
+            if diff > STEP_REL_TOL * top:
+                raise AssertionError(
+                    f"HAT step: {k} {'with' if blocked else 'without'} "
+                    f"mask_back differs on the card from the CPU by {diff} "
+                    f"(largest entry {top})")
+            if top and diff / top >= worst.get(blocked, ("", 0.0))[1]:
+                worst[blocked] = (k, diff / top)
+    out["worst_diff_of_largest"] = {
+        "with_mask_back": worst[True], "without": worst[False]}
+    log(json.dumps({"hat_step": "task 2, batch 200, s = 1/smax, no flips",
+                    **out}))
+    return out
+
+
+def check_pathnet(manager, matrix) -> dict:
+    """Two best paths of L layers; every module on task 1's best path
+    bit-identical in task 2's model; the eval entry (ref task 1, model 2)
+    on the card against the CPU; the launches, device and event ms of one
+    batch-64 step of task 2's path."""
+    import numpy as np
+
+    from clsurvey_torch.engine.train import (tree_zeros_like,
+                                             trainable_from_host)
+    from clsurvey_torch.methods import pathnet
+    from clsurvey_torch.models.convert import pathnet_params_from_jax
+    from clsurvey_torch.ops import _kernels
+
+    models = _task_models(manager)
+    net = manager.method._net(manager)
+    bps = [np.asarray(p) for p in models[1]["method_aux"]["best_paths"]]
+    if len(bps) != 2 or any(p.ndim != 2 or p.shape[0] != net.n_layers
+                            for p in bps):
+        raise AssertionError(f"PathNet: best paths {bps}")
+    p1, p2 = (pathnet_params_from_jax(m["params"]) for m in models)
+    frozen = 0
+    for name, a in p1.items():
+        for mod in set(bps[0][pathnet.layer_index(name, net.n_convs)]):
+            if not a[mod].equal(p2[name][mod]):
+                raise AssertionError(f"PathNet: {name}[{mod}] of task 1's "
+                                     f"path moved at task 2")
+            frozen += 1
+    log(f"PathNet: best paths {[p.tolist() for p in bps]}; task 1's "
+        f"{frozen} module slices are bit-identical in task 2's model")
+    check_mask_entry(manager, models[1], matrix)
+
+    seq = manager.dataset
+    train = seq.get_task_dataset(2).train
+    fns = pathnet.PathNetFns(net, seq.mean, seq.std,
+                             models[1]["heads"]["class_counts"], 1,
+                             torch.device("cuda"))
+    tr = trainable_from_host(models[1], "cuda", True,
+                             pathnet_params_from_jax)
+    mom = tree_zeros_like(tr)
+    keep = {k: v > 0 for k, v in pathnet.module_train_mask(
+        tr["params"], bps[1], pathnet.frozen_modules(bps[:1],
+                                                     net.n_layers, net.M),
+        net.n_convs).items()}
+    path = torch.as_tensor(bps[1], dtype=torch.long, device="cuda")
+    x = torch.from_numpy(train.images[:pathnet.TRAIN_BATCH]).cuda()
+    y = torch.from_numpy(train.labels[:pathnet.TRAIN_BATCH]).cuda().long()
+    step = lambda: fns.train_step(tr, mom, x, y, path, keep, 1e-5)
+    _kernels.reset_launches()
+    step()
+    torch.cuda.synchronize()
+    out = {"launches_per_step": dict(_kernels.LAUNCHES)}
+    out["step_device_ms"], out["step_event_ms"] = time_ms(step, iters=10,
+                                                          warmup=2)
+    log(json.dumps({"pathnet_step": "task 2, batch 64", **out}))
+    return {"frozen_module_slices": frozen, **out}
 
 
 def phase_protocol(card: str) -> None:
@@ -1315,7 +1605,7 @@ def phase_protocol(card: str) -> None:
 
 
 PHASES = ("card", "kernels", "cli", "framework", "methods", "rehearsal",
-          "protocol")
+          "masks", "protocol")
 
 
 def main(argv=None) -> int:
@@ -1358,7 +1648,8 @@ def run(phases: list) -> int:
     timed("card", phase_card, card)
     # None: the phase did not run
     checks = launches = fw_launches = method_launches = None
-    reh_launches = None
+    reh_launches = mask_launches = None
+    seen = set()  # batch sizes the rehearsal and masks phases used
     if "kernels" in phases:
         checks = timed("kernels", phase_kernels)
     if "cli" in phases:
@@ -1376,16 +1667,21 @@ def run(phases: list) -> int:
                                         card)
     if "rehearsal" in phases:
         with tempfile.TemporaryDirectory() as root:
-            reh_launches, seen = timed("rehearsal", phase_rehearsal, root,
-                                       card)
-        held = set(checks["held_batches"]) if checks else set()
-        late = sorted(set(seen) - held - {PREPROCESS_SHAPE[0]})
-        if late:  # a size the kernels phase did not hold: hold it now
-            check_batches(torch.Generator(device="cuda").manual_seed(1),
-                          late)
-            log(f"kernels agree at the rehearsal's other batch sizes {late}")
-            if checks:
-                checks["held_batches"] = sorted(held | set(late))
+            reh_launches, sizes = timed("rehearsal", phase_rehearsal, root,
+                                        card)
+        seen.update(sizes)
+    if "masks" in phases:
+        with tempfile.TemporaryDirectory() as root:
+            mask_launches, sizes = timed("masks", phase_masks, root, card)
+        seen.update(sizes)
+    held = set(checks["held_batches"]) if checks else set()
+    late = sorted(seen - held - {PREPROCESS_SHAPE[0]})
+    if late:  # a size the kernels phase did not hold: hold it now
+        check_batches(torch.Generator(device="cuda").manual_seed(1), late)
+        log(f"kernels agree at the other batch sizes the rehearsal and "
+            f"masks phases used: {late}")
+        if checks:
+            checks["held_batches"] = sorted(held | set(late))
     if "protocol" in phases:
         timed("protocol", phase_protocol, card)
     if checks is not None:
@@ -1406,6 +1702,8 @@ def run(phases: list) -> int:
                  m: n[name] for m, n in method_launches.items()},
              "launches_rehearsal": reh_launches and {
                  m: n[name] for m, n in reh_launches.items()},
+             "launches_masks": mask_launches and {
+                 m: n[name] for m, n in mask_launches.items()},
              "held_batches": checks["held_batches"]}
             for name in sources]}))
     if set(phases) >= set(PHASES):

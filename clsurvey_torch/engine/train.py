@@ -389,16 +389,18 @@ class TrainJob:
             self.eval_batch_size = self.batch_size
 
 
-def trainable_to_host(trainable: dict) -> dict:
+def trainable_to_host(trainable: dict, convert=params_to_jax) -> dict:
     """Trainable tree (or a tree shaped like it, e.g. momentum) -> the JAX
-    package's layout, numpy."""
-    return {"params": params_to_jax(trainable["params"]),
+    package's layout, numpy. ``convert`` maps the backbone's weights (HAT
+    and PathNet pass their own, ``models/convert.py``)."""
+    return {"params": convert(trainable["params"]),
             "heads": io.to_host(trainable["heads"])}
 
 
-def trainable_from_host(tree: dict, device, requires_grad: bool) -> dict:
+def trainable_from_host(tree: dict, device, requires_grad: bool,
+                        convert=params_from_jax) -> dict:
     """JAX-layout trainable tree -> tensors on ``device``."""
-    out = {"params": params_from_jax(tree["params"], device),
+    out = {"params": convert(tree["params"], device),
            "heads": {k: torch.tensor(np.asarray(tree["heads"][k],
                                                 np.float32), device=device)
                      for k in ("kernel", "bias")}}

@@ -17,7 +17,8 @@ from clsurvey_torch.engine.train import (
     tree_zeros_like, trainable_from_host)
 from clsurvey_torch.methods.base import UpdateRule
 from clsurvey_torch.models import heads as heads_lib
-from clsurvey_torch.models.convert import batch_stats_from_jax
+from clsurvey_torch.models.convert import (
+    batch_stats_from_jax, params_from_jax)
 from clsurvey_torch.utils import io, rng as rng_lib
 
 
@@ -28,12 +29,15 @@ def load_model(path_or_dict) -> dict:
 
 
 def prepare_trainable(model: dict, task: int, device, head_gen=None,
-                      reinit_head: bool = True) -> dict:
+                      reinit_head: bool = True,
+                      convert=params_from_jax) -> dict:
     """Model dict -> trainable tensors on ``device`` (fresh copies, never
     aliasing the caller's arrays), with the current task's head freshly
     initialised (the reference's replace-last-classifier-layer,
-    ref:src/methods/Finetune/main_SGD.py:50-70)."""
-    trainable = trainable_from_host(model, device, requires_grad=False)
+    ref:src/methods/Finetune/main_SGD.py:50-70). ``convert`` maps the
+    weights (HAT's and PathNet's layouts, ``models/convert.py``)."""
+    trainable = trainable_from_host(model, device, requires_grad=False,
+                                    convert=convert)
     if reinit_head:
         gen = head_gen if head_gen is not None else rng_lib.generator(0)
         trainable["heads"] = heads_lib.head_params(heads_lib.reinit_head(

@@ -19,7 +19,20 @@ ownership masks (with their 0-d sentinels for biases and batch-norm leaves)
 travel inside a model's ``method_aux`` through them, in the same layouts as
 the weights. ``params_from_jax`` casts to float32 unless it is told to keep
 the dtype (``dtype=None``); ``params_to_jax`` keeps every dtype numpy has
-(bfloat16 becomes float32)."""
+(bfloat16 becomes float32).
+
+HAT and PathNet keep flat trees of their own, with the same leaves:
+
+- HAT: ``conv_<i>/{kernel,bias}`` (``i`` counts the convs, not the cfg
+  entries), ``fc_<j>/{kernel,bias}`` and the bare ``(n_tasks, C)`` arrays
+  ``emb_conv_<i>`` / ``emb_fc_<j>``; in the port ``conv_<i>.weight``
+  (OIHW, channels_last), ``conv_<i>.bias``, ..., ``emb_conv_<i>``. The
+  same pair carries HAT's ``mask_back`` tree and its momentum.
+- PathNet: ``conv_<i>_kernel`` ``(M, kh, kw, in, out)``, ``conv_<i>_bias``
+  ``(M, out)``, ``fc_<j>_kernel`` ``(M, in, out)``, ``fc_<j>_bias``; in the
+  port ``conv_<i>.weight`` ``(M, out, in, kh, kw)`` and ``fc_<j>.weight``
+  ``(M, out, in)``, so that the rows of the selected modules are one
+  conv's or one linear layer's weight."""
 
 from __future__ import annotations
 
@@ -28,24 +41,38 @@ import torch
 import torch.nn as nn
 
 _SUFFIX = {"kernel": "weight", "bias": "bias", "scale": "scale"}
+_INVERSE = {v: k for k, v in _SUFFIX.items()}
+
+
+def _leaf_from_jax(value, leaf: str, device, dtype) -> torch.Tensor:
+    """One leaf of a conv / dense layer: HWIO -> OIHW (channels_last),
+    (in, out) -> (out, in); a copy, never an alias."""
+    a = np.asarray(value, dtype=dtype)
+    if leaf == "kernel" and a.ndim > 1:
+        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    t = torch.tensor(a, device=device)
+    if t.dim() == 4:
+        t = t.contiguous(memory_format=torch.channels_last)
+    return t
+
+
+def _leaf_to_jax(t: torch.Tensor, suffix: str) -> np.ndarray:
+    a = t.detach().cpu()
+    a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    if suffix == "weight":
+        a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+    return np.ascontiguousarray(a) if a.ndim else a  # keeps a 0-d leaf
 
 
 def params_from_jax(tree: dict, device=None,
                     dtype=np.float32) -> dict[str, torch.Tensor]:
     """JAX-layout numpy pytree -> ``{torch parameter name: tensor}``, cast
     to ``dtype`` (None keeps each leaf's)."""
-    out = {}
-    for group, layers in tree.items():
-        for layer, leaves in layers.items():
-            for leaf, value in leaves.items():
-                a = np.asarray(value, dtype=dtype)
-                if leaf == "kernel" and a.ndim > 1:
-                    a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-                t = torch.tensor(a, device=device)  # a copy, never an alias
-                if t.dim() == 4:
-                    t = t.contiguous(memory_format=torch.channels_last)
-                out[f"{group}.{layer}.{_SUFFIX[leaf]}"] = t
-    return out
+    return {f"{group}.{layer}.{_SUFFIX[leaf]}":
+            _leaf_from_jax(value, leaf, device, dtype)
+            for group, layers in tree.items()
+            for layer, leaves in layers.items()
+            for leaf, value in leaves.items()}
 
 
 def params_to_jax(params: dict[str, torch.Tensor] | nn.Module) -> dict:
@@ -53,16 +80,69 @@ def params_to_jax(params: dict[str, torch.Tensor] | nn.Module) -> dict:
     JAX-layout numpy pytree."""
     if isinstance(params, nn.Module):
         params = dict(params.named_parameters())
-    inverse = {v: k for k, v in _SUFFIX.items()}
     tree: dict = {}
     for name, t in params.items():
         group, layer, suffix = name.split(".")
-        a = t.detach().cpu()
-        a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+        tree.setdefault(group, {}).setdefault(layer, {})[_INVERSE[suffix]] = \
+            _leaf_to_jax(t, suffix)
+    return tree
+
+
+def hat_params_from_jax(tree: dict, device=None) -> dict[str, torch.Tensor]:
+    """HAT's flat JAX-layout tree -> ``{name: float32 tensor}``."""
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            for leaf, v in value.items():
+                out[f"{name}.{_SUFFIX[leaf]}"] = _leaf_from_jax(
+                    v, leaf, device, np.float32)
+        else:
+            out[name] = _leaf_from_jax(value, "emb", device, np.float32)
+    return out
+
+
+def hat_params_to_jax(params: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`hat_params_from_jax`."""
+    tree: dict = {}
+    for name, t in params.items():
+        if "." in name:
+            layer, suffix = name.split(".")
+            tree.setdefault(layer, {})[_INVERSE[suffix]] = \
+                _leaf_to_jax(t, suffix)
+        else:
+            tree[name] = _leaf_to_jax(t, "emb")
+    return tree
+
+
+# PathNet: module-stacked kernels, (M, kh, kw, in, out) <-> (M, out, in,
+# kh, kw) and (M, in, out) <-> (M, out, in)
+_PATHNET_FROM = {5: (0, 4, 3, 1, 2), 3: (0, 2, 1)}
+_PATHNET_TO = {5: (0, 3, 4, 2, 1), 3: (0, 2, 1)}
+
+
+def pathnet_params_from_jax(tree: dict,
+                            device=None) -> dict[str, torch.Tensor]:
+    """PathNet's flat JAX-layout tree -> ``{name: float32 tensor}``."""
+    out = {}
+    for name, value in tree.items():
+        layer, leaf = name.rsplit("_", 1)
+        a = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            a = a.transpose(_PATHNET_FROM[a.ndim])
+        out[f"{layer}.{_SUFFIX[leaf]}"] = torch.tensor(
+            np.ascontiguousarray(a), device=device)
+    return out
+
+
+def pathnet_params_to_jax(params: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`pathnet_params_from_jax`."""
+    tree = {}
+    for name, t in params.items():
+        layer, suffix = name.split(".")
+        a = t.detach().float().cpu().numpy()
         if suffix == "weight":
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-        tree.setdefault(group, {}).setdefault(layer, {})[inverse[suffix]] = \
-            np.ascontiguousarray(a) if a.ndim else a  # keeps a 0-d leaf
+            a = a.transpose(_PATHNET_TO[a.ndim])
+        tree[f"{layer}_{_INVERSE[suffix]}"] = np.ascontiguousarray(a)
     return tree
 
 
