@@ -12,16 +12,22 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    source, all started together) and print the ptxas report;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (f32 and bf16, tie-heavy pool inputs, one odd
-   pool shape; kernel A's vector and scalar kernels, an unaligned pointer)
-   and at the shapes MAS's importance pass gives them (chunks of 16, the
-   pool pair also under ``torch.func.vmap(grad)``), then its device time
-   (CUPTI, via torch.profiler) and its CUDA-event time over back-to-back
-   calls, beside the plain version's, the library call's where one
+   pool shape; kernel A's vector and scalar kernels, an unaligned pointer;
+   the pool pair's vec route and its scalar route, at C not a multiple of
+   8 and an input one element off, each launch on the route its C and
+   alignment call for) and at the shapes MAS's importance pass gives them
+   (chunks of 16, the pool pair also under ``torch.func.vmap(grad)``),
+   then its device time (CUPTI, via torch.profiler) and its CUDA-event
+   time over back-to-back calls (warm: the input stays in the 50 MB L2
+   where it fits), and for the pool pair also a cold-L2 device time (a
+   128 MiB buffer overwritten before each call, its kernel left out by
+   name), beside the plain version's, the library call's where one
    exists, the bound, and an empty kernel's time;
 3. cli: the timing_mode finetuning CLI on small_VGG9_cl_128_128, with the
    launch counters zeroed just before and read just after; every kernel
-   must have launched, every task must have left a best model that
-   ``clsurvey_torch.utils.io.load`` reads back;
+   must have launched, every pool launch on the vec route, and every task
+   must have left a best model that ``clsurvey_torch.utils.io.load``
+   reads back;
 4. framework: after the SI first-task base-model dump (made once, for
    this phase and the next), SI, EWC and MAS through Phase 1, Phase 2 and
    ``--test`` under timing_mode, counters zeroed before each method;
@@ -58,8 +64,9 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    report, and holds one eval entry and one task-2 step's processed
    gradient on the card against the CPU, with the step's launches and
    times; checks PathNet's two best paths, that task 1's modules are
-   bit-identical in task 2's model, one eval entry card vs CPU, and times
-   one batch-64 step;
+   bit-identical in task 2's model, prints the card-vs-CPU gap of its
+   eval batch layer by layer with cuDNN's autotuner on and off, holds one
+   eval entry card vs CPU, and times one batch-64 step;
 8. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
@@ -74,7 +81,9 @@ eval and tail) is held right after those phases, so every size the path
 used is held.
 
 Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
-before the last is the ``{"kernels": [...]}`` record: ``launches``
+before the last is the ``{"kernels": [...]}`` record (A in float32, B1 and
+B2 in float32 and bfloat16; ``ms`` warm, ``cold_ms`` on a cold L2, summed
+over the step's shapes, ``shape_routes`` the route of each): ``launches``
 is the count of the ``cli`` run, ``launches_framework``,
 ``launches_methods``, ``launches_rehearsal`` and ``launches_masks`` hold
 each method's own count (in a partial run the counts are null for the
@@ -94,6 +103,8 @@ import time
 
 import torch
 
+from clsurvey_torch.utils.devtime import cold_ms, kernel_us, time_ms
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -101,6 +112,12 @@ STD = (0.229, 0.224, 0.225)
 POOL_SHAPES = ((200, 64, 64, 64), (200, 32, 32, 64), (200, 16, 16, 64),
                (200, 8, 8, 128))
 ODD_POOL_SHAPE = (6, 9, 7, 64)
+# the pool pair's scalar route: C not a multiple of 8 (C 12: the vec route
+# in float32, the scalar one in bfloat16; C 5: scalar in both), and the
+# main path's first pool input one element past an aligned pointer
+SCALAR_POOL_SHAPES = ((6, 10, 12, 12), (6, 9, 7, 5))
+# written over before each cold-L2 launch: above the H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
 PREPROCESS_SHAPE = (200, 64, 64, 3)
 # what MAS's importance pass gives the kernels: chunks of 16 samples, which
 # the pool's vmap rule folds from (16, 1, H, W, C) into one batch of 16
@@ -127,44 +144,6 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def _device_kernel_us(prof) -> float:
-    """Total device time (us) of the kernels a profiler saw."""
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if "CUDA" in str(getattr(e, "device_type", "")))
-
-
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
-    """(device_ms, event_ms) per call of ``fn``. device_ms is the summed
-    device time of the kernels ``fn`` launches (CUPTI, through
-    torch.profiler); event_ms is CUDA-event time over ``iters``
-    back-to-back calls, which for a short kernel is bounded by the host's
-    time per call rather than by the kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    event_ms = start.elapsed_time(end) / iters
-    # CUPTI now and then hands the profiler no kernel records: try again
-    # before calling it a failure
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        device_ms = _device_kernel_us(prof) / 1e3 / iters
-        if device_ms > 0:
-            return device_ms, event_ms
-    raise AssertionError("the profiler saw no device time, three times")
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -318,33 +297,74 @@ def check_pool_under_vmap(shape, dtype, gen) -> None:
                              f"plain version at {shape} {dtype}")
 
 
+def _at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t``'s values in a tensor whose base pointer is ``offset`` elements
+    past an allocation's start (1: not 16-byte aligned)."""
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return flat[offset:].view(t.shape).copy_(t)
+
+
+def _routes_of(call) -> tuple:
+    """Run ``call`` and return the routes it launched B1 / B2 on."""
+    from clsurvey_torch.ops import _kernels
+
+    before = dict(_kernels.ROUTES)
+    out = call()
+    return out, tuple(sorted(k for k in before
+                             if _kernels.ROUTES[k] > before[k]))
+
+
 def check_pool(gen) -> tuple[dict, dict]:
+    """B1 and B2 bit-equal to their plain versions at the main path's four
+    pool inputs, the odd shape, MAS's chunk shapes (also under
+    ``vmap(grad)``), and on the scalar route (``SCALAR_POOL_SHAPES`` and an
+    unaligned input), in both dtypes, each on the route its C and
+    alignment call for. Timed at the main path's shapes (warm: back-to-back
+    calls on one input; cold: the L2 overwritten before each call) and on
+    the scalar route at the first of them, beside the plain versions and
+    the library calls."""
     import torch.nn.functional as F
 
     from clsurvey_torch.ops import pool
 
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = scratch.bitwise_not_
+    cases = ([(s, 0) for s in POOL_SHAPES + (ODD_POOL_SHAPE,)
+              + MAS_POOL_SHAPES + SCALAR_POOL_SHAPES]
+             + [(POOL_SHAPES[0], 1)])
     fwd_rows, bwd_rows, err = [], [], 0.0
-    for shape in POOL_SHAPES + (ODD_POOL_SHAPE,) + MAS_POOL_SHAPES:
+    for shape, offset in cases:
         for dtype in (torch.float32, torch.bfloat16):
             # small integers: frequent in-window ties
-            x = torch.randint(0, 3, shape, device="cuda",
-                              generator=gen).to(dtype)
-            val, code = pool.pool_fwd(x)
+            x = _at_offset(torch.randint(0, 3, shape, device="cuda",
+                                         generator=gen).to(dtype), offset)
+            (val, code), fwd_route = _routes_of(lambda: pool.pool_fwd(x))
             pval, pcode = pool.pool_fwd_plain(x)
-            g = torch.randn(val.shape, device="cuda", generator=gen,
-                            dtype=torch.float32).to(dtype)
-            dx = pool.pool_bwd(g, code, x.shape)
+            g = _at_offset(torch.randn(val.shape, device="cuda",
+                                       generator=gen).to(dtype), offset)
+            dx, bwd_route = _routes_of(lambda: pool.pool_bwd(g, code,
+                                                             x.shape))
             pdx = pool.pool_bwd_plain(g, pcode, x.shape)
             torch.cuda.synchronize()
+            route = "vec" if not offset \
+                and shape[3] % pool.VEC_WIDTH[dtype] == 0 else "scalar"
+            if (fwd_route, bwd_route) != ((f"pool_fwd_{route}",),
+                                          (f"pool_bwd_{route}",)):
+                raise AssertionError(
+                    f"the pool pair at {shape} {dtype} (offset {offset}) "
+                    f"took routes {fwd_route} {bwd_route}, not {route}")
             if not (torch.equal(val, pval) and torch.equal(code, pcode)):
-                raise AssertionError(f"kernel B1 disagrees at {shape} "
-                                     f"{dtype}")
+                raise AssertionError(f"kernel B1 [{route}] disagrees at "
+                                     f"{shape} {dtype}")
             if not torch.equal(dx, pdx):
-                raise AssertionError(f"kernel B2 disagrees at {shape} "
-                                     f"{dtype}")
+                raise AssertionError(f"kernel B2 [{route}] disagrees at "
+                                     f"{shape} {dtype}")
             if shape in MAS_POOL_SHAPES:
                 check_pool_under_vmap(shape, dtype, gen)
-            if shape not in POOL_SHAPES:
+            main = shape in POOL_SHAPES and not offset
+            if not (main or offset):
                 continue  # exactness only: not timed
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
             lib_out, lib_idx = F.max_pool2d(x_nchw, 2, 2,
@@ -353,21 +373,35 @@ def check_pool(gen) -> tuple[dict, dict]:
             esz = x.element_size()
             fwd_bytes = x.numel() * esz + val.numel() * (esz + 1)
             bwd_bytes = g.numel() * (esz + 1) + x.numel() * esz
-            fwd_rows.append(_timings(
-                {"shape": list(shape), "dtype": str(dtype),
-                 "bound_ms": bound_ms(fwd_bytes)},
-                kernel=lambda: pool.pool_fwd(x),
-                plain=lambda: pool.pool_fwd_plain(x),
-                library=lambda: F.max_pool2d(x_nchw, 2, 2)))
-            bwd_rows.append(_timings(
-                {"shape": list(shape), "dtype": str(dtype),
-                 "bound_ms": bound_ms(bwd_bytes)},
-                kernel=lambda: pool.pool_bwd(g, code, x.shape),
-                plain=lambda: pool.pool_bwd_plain(g, code, x.shape),
-                library=lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                    g_nchw, x_nchw, [2, 2], [2, 2], [0, 0], [1, 1], False,
-                    lib_idx)))
+            for rows, nbytes, kernel, plain, library in (
+                    (fwd_rows, fwd_bytes, lambda: pool.pool_fwd(x),
+                     lambda: pool.pool_fwd_plain(x),
+                     lambda: F.max_pool2d(x_nchw, 2, 2)),
+                    (bwd_rows, bwd_bytes,
+                     lambda: pool.pool_bwd(g, code, x.shape),
+                     lambda: pool.pool_bwd_plain(g, code, x.shape),
+                     lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                         g_nchw, x_nchw, [2, 2], [2, 2], [0, 0], [1, 1],
+                         False, lib_idx))):
+                row = _timings(
+                    {"shape": list(shape), "dtype": str(dtype),
+                     "route": route, "main": main,
+                     "bound_ms": bound_ms(nbytes)},
+                    kernel=kernel, plain=plain if main else None,
+                    library=library if main else None)
+                row["cold_ms"] = cold_ms(kernel, flush)
+                rows.append(row)
             del lib_out
+    del scratch
+    for what, rows in (("B1", fwd_rows), ("B2", bwd_rows)):
+        for r in rows:
+            log(f"kernel {what} [{r['route']}] {r['dtype']} {r['shape']}: "
+                f"{r['kernel_ms']:.5f} ms warm, {r['cold_ms']:.5f} ms cold "
+                f"(bound {r['bound_ms']:.5f}: "
+                f"{100 * r['bound_ms'] / r['cold_ms']:.0f}% of it reached "
+                f"cold, {100 * r['bound_ms'] / r['kernel_ms']:.0f}% warm)"
+                + ("" if r["library_ms"] is None else
+                   f"; library {r['library_ms']:.5f} ms warm"))
     return {"err": err, "rows": fwd_rows}, {"err": err, "rows": bwd_rows}
 
 
@@ -378,18 +412,19 @@ def _kernel_row(name, source, replaces, check, launches, dtype) -> dict:
     ``shapes``."""
     rows = [r for r in check["rows"]
             if r["dtype"] == str(dtype) and r.get("main", True)]
-    total = lambda key: (None if any(r[key] is None for r in rows)
+    total = lambda key: (None if any(r.get(key) is None for r in rows)
                          else sum(r[key] for r in rows))
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "tpu_counterpart": replaces,
         "launches": launches, "max_abs_err": check["err"],
         "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
-        "event_ms": total("kernel_event_ms"),
+        "cold_ms": total("cold_ms"), "event_ms": total("kernel_event_ms"),
         "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": "bytes", "library_ms": total("library_ms"),
         "dtype": str(dtype), "shape": [r["shape"] for r in rows],
-        "shapes": check["rows"],
+        "shape_routes": [r.get("route", r.get("path")) for r in rows],
+        "shapes": [r for r in check["rows"] if r["dtype"] == str(dtype)],
     }
 
 
@@ -453,11 +488,18 @@ def phase_cli(root: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
-    log(f"cli wall {wall:.2f} s; kernel launches {launches}")
+    routes = dict(_kernels.ROUTES)
+    log(f"cli wall {wall:.2f} s; kernel launches {launches}; pool routes "
+        f"{routes}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
+    for name in ("pool_fwd", "pool_bwd"):
+        if routes[f"{name}_vec"] != launches[name]:
+            raise AssertionError(f"{name}: {routes[f'{name}_scalar']} of "
+                                 f"{launches[name]} main-path launches "
+                                 f"took the scalar route")
     for task, secs in manager.extras["task_seconds"].items():
         path = manager.best_model_path(task, create=False)
         model = io.load(path)
@@ -1473,6 +1515,86 @@ def hat_step(manager, models: list, smax: float) -> dict:
     return out
 
 
+def pathnet_layer_gaps(manager, model: dict) -> list:
+    """Where the card's PathNet logits leave the CPU's. Task 1's test
+    images on its best path, layer by layer: each layer's raw product
+    (conv or dense, before ReLU) and its whole module (ReLU, pool, sum
+    over the path's N modules) on the card against the CPU, both fed the
+    CPU's input to that layer, with cuDNN's autotuner on (the port's
+    setting) and off; then the gap carried to the features (each device's
+    own activations). Gaps are max |card - CPU| and that over max |CPU|.
+    Restores the autotuner's setting."""
+    import torch.nn.functional as F
+
+    from clsurvey_torch.methods import pathnet
+    from clsurvey_torch.models.convert import pathnet_params_from_jax
+    from clsurvey_torch.ops import preprocess as pp
+
+    seq = manager.dataset
+    net = manager.method._net(manager)
+    params = pathnet_params_from_jax(model["params"])
+    path = torch.as_tensor(model["method_aux"]["best_paths"][0],
+                           dtype=torch.long)
+    images = torch.as_tensor(seq.get_task_dataset(1).test.images)
+    x = pp.preprocess(images, seq.mean, seq.std).permute(0, 3, 1, 2)
+
+    def gap(card, cpu) -> list:
+        d = (card.float().cpu() - cpu).abs().max().item()
+        return [d, d / max(cpu.abs().max().item(), 1e-30)]
+
+    layers, pools = [], []
+    for ci, v in enumerate(net.cfg):
+        if v != "M":
+            layers.append("conv")
+            pools.append(ci + 1 < len(net.cfg) and net.cfg[ci + 1] == "M")
+    layers += ["fc"] * len(net.fc_widths)
+    pools += [False] * len(net.fc_widths)
+    saved = torch.backends.cudnn.benchmark
+    rows, carried = [], {True: x.cuda(), False: x.cuda()}
+    try:
+        for i, (kind, pool) in enumerate(zip(layers, pools)):
+            name = f"conv_{i}" if kind == "conv" else \
+                f"fc_{i - net.n_convs}"
+            w, b = params[f"{name}.weight"], params[f"{name}.bias"]
+            sel = path[i]
+            if kind == "fc" and i == net.n_convs:  # NHWC flatten
+                x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+                carried = {k: c.permute(0, 2, 3, 1).reshape(c.shape[0], -1)
+                           for k, c in carried.items()}
+
+            def raw(xx, ww, bb, ss):
+                n, out_w = ss.shape[0], ww.shape[1]
+                k = ww.index_select(0, ss).reshape(n * out_w,
+                                                   *ww.shape[2:])
+                bias = bb.index_select(0, ss).reshape(n * out_w)
+                return (F.conv2d(xx, k, bias, padding=1) if kind == "conv"
+                        else F.linear(xx, k, bias))
+
+            def module(xx, ww, bb, ss):
+                return (pathnet.module_conv(xx, ww, bb, ss, pool)
+                        if kind == "conv"
+                        else pathnet.module_dense(xx, ww, bb, ss))
+
+            with torch.no_grad():
+                cpu_raw, cpu_out = raw(x, w, b, sel), module(x, w, b, sel)
+                row = {"layer": name, "shape": list(cpu_out.shape)}
+                on_card = (x.cuda(), w.cuda(), b.cuda(), sel.cuda())
+                for bench in (True, False):
+                    torch.backends.cudnn.benchmark = bench
+                    key = "autotune_on" if bench else "autotune_off"
+                    row[f"raw_{key}"] = gap(raw(*on_card), cpu_raw)
+                    row[f"module_{key}"] = gap(module(*on_card), cpu_out)
+                    carried[bench] = module(carried[bench], *on_card[1:])
+                    row[f"carried_{key}"] = gap(carried[bench], cpu_out)
+            rows.append(row)
+            x = cpu_out
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    for row in rows:
+        log(json.dumps({"pathnet_layer_gap": row}))
+    return rows
+
+
 def check_pathnet(manager, matrix) -> dict:
     """Two best paths of L layers; every module on task 1's best path
     bit-identical in task 2's model; the eval entry (ref task 1, model 2)
@@ -1502,6 +1624,7 @@ def check_pathnet(manager, matrix) -> dict:
             frozen += 1
     log(f"PathNet: best paths {[p.tolist() for p in bps]}; task 1's "
         f"{frozen} module slices are bit-identical in task 2's model")
+    pathnet_layer_gaps(manager, models[1])
     check_mask_entry(manager, models[1], matrix)
 
     seq = manager.dataset
@@ -1592,7 +1715,7 @@ def phase_protocol(card: str) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
                   if "CUDA" in str(getattr(e, "device_type", ""))]
-        device_ms = _device_kernel_us(prof) / 1e3
+        device_ms = sum(kernel_us(prof).values()) / 1e3
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         log(json.dumps({
             "profile": f"10 steps {dtype}", "wall_ms": wall_ms,
@@ -1623,8 +1746,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    import clsurvey_torch  # noqa: F401  (fail before printing anything)
-
     # one npz cache of the synthetic tasks for the whole run: a task is
     # generated once (about 5 s of host numpy at 64 px), not once per CLI
     # run that touches it
@@ -1691,11 +1812,16 @@ def run(phases: list) -> int:
         replaces = {"normalize_flip": "clsurvey_tpu/ops/preprocess.py:61",
                     "pool_fwd": "clsurvey_tpu/ops/pool_pallas.py:82",
                     "pool_bwd": "clsurvey_tpu/ops/pool_pallas.py:113"}
+        # A in float32; B1 and B2 in float32 and in bfloat16, the dtype of
+        # the protocol's headline throughput
+        dtypes = {"normalize_flip": (torch.float32,),
+                  "pool_fwd": (torch.float32, torch.bfloat16),
+                  "pool_bwd": (torch.float32, torch.bfloat16)}
         log(card)
         log(json.dumps({"kernels": [
             {**_kernel_row(name, sources[name], replaces[name],
                            checks[name], launches and launches[name],
-                           torch.float32),
+                           dtype),
              "launches_framework": fw_launches and {
                  m: n[name] for m, n in fw_launches.items()},
              "launches_methods": method_launches and {
@@ -1705,7 +1831,7 @@ def run(phases: list) -> int:
              "launches_masks": mask_launches and {
                  m: n[name] for m, n in mask_launches.items()},
              "held_batches": checks["held_batches"]}
-            for name in sources]}))
+            for name in sources for dtype in dtypes[name]]}))
     if set(phases) >= set(PHASES):
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,7 +56,7 @@ from clsurvey_torch.models.convert import (
 from clsurvey_torch.models.registry import ModelSpec
 from clsurvey_torch.ops import preprocess as pp
 from clsurvey_torch.utils import device as device_lib
-from clsurvey_torch.utils import io, rng as rng_lib, timing
+from clsurvey_torch.utils import io, orbax_io, rng as rng_lib, timing
 from clsurvey_torch.utils.paths import (
     BEST_MODEL_FILENAME, EPOCH_CKPT_FILENAME)
 
@@ -461,19 +461,31 @@ def _resident(split_np: np.ndarray, what: str, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(split_np)).to(device)
 
 
-def _load_resume(ckpt_path: str, device):
+def _load_resume(ckpt_path: str, device, rule: UpdateRule | None = None):
+    """(the epoch checkpoint's dict, its TrainState on ``device``). The
+    JAX engine, where orbax is importable, keeps the trees in an Orbax
+    directory and only a pointer to it in the pickle; the pointer is
+    followed as written, as the JAX engine follows it. Such a file holds
+    the method state in the JAX layout: the base rule's (its
+    hyperparameters) is the same in both packages, any other rule must
+    convert it through its own ``mstate_from_jax``, or the resume raises."""
     ck = io.load(ckpt_path)
-    if ck.get("orbax_state"):
+    rule = rule or UpdateRule()
+    if ck.get("orbax_state") and type(rule) is not UpdateRule and \
+            type(rule).mstate_from_jax is UpdateRule.mstate_from_jax:
         raise RuntimeError(
             f"{ckpt_path} points at an Orbax resume directory "
             f"({ck['orbax_state']}), written by clsurvey_tpu; clsurvey_torch "
-            f"reads only plain-pickle resume checkpoints. Delete it to "
+            f"does not convert {type(rule).__name__}'s method state from "
+            f"the JAX layout yet (ROADMAP.md, queue 3). Delete it to "
             f"restart the task.")
+    trees = orbax_io.load(ck["orbax_state"]) if ck.get("orbax_state") \
+        else ck
     state = TrainState(
-        trainable_from_host(ck["trainable"], device, requires_grad=True),
-        batch_stats_from_jax(ck["batch_stats"], device),
-        trainable_from_host(ck["momentum"], device, requires_grad=False),
-        tree_to_device(ck["mstate"], device))
+        trainable_from_host(trees["trainable"], device, requires_grad=True),
+        batch_stats_from_jax(trees["batch_stats"], device),
+        trainable_from_host(trees["momentum"], device, requires_grad=False),
+        tree_to_device(rule.mstate_from_jax(trees["mstate"]), device))
     return ck, state
 
 
@@ -508,7 +520,7 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
     history_path = os.path.join(job.exp_dir, "error_history.json")
 
     if job.resume and io.exists(ckpt_path):
-        ck, state = _load_resume(ckpt_path, ctx.device)
+        ck, state = _load_resume(ckpt_path, ctx.device, ctx.update_rule)
         start_epoch = ck["epoch"] + 1
         lr = ck["lr"]
         best_acc = ck["best_acc"]
@@ -616,7 +628,8 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
             trees = {"trainable": trainable_to_host(state.trainable),
                      "batch_stats": batch_stats_to_jax(state.batch_stats),
                      "momentum": trainable_to_host(state.momentum),
-                     "mstate": io.to_host(state.mstate)}
+                     "mstate": io.to_host(
+                         ctx.update_rule.mstate_to_jax(state.mstate))}
             io.save({**meta, **trees}, ckpt_path)
 
     need_save = False

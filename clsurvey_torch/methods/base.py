@@ -106,6 +106,17 @@ class UpdateRule:
         (importance tensors, SI path integrals, masks, memories)."""
         return None
 
+    def mstate_to_jax(self, mstate: Any) -> Any:
+        """The method state as an epoch checkpoint holds it: the JAX
+        package's layout where a rule converts it (``mstate_from_jax`` is
+        the inverse), else the port's own."""
+        return mstate
+
+    def mstate_from_jax(self, tree: Any) -> Any:
+        """An epoch checkpoint's host method state -> the port's layout,
+        leaves still on the host (the engine moves them to the device)."""
+        return tree
+
 
 @dataclass
 class Method:

@@ -57,6 +57,9 @@ def tree_copy(tree: dict) -> dict:
 class QuadRegRule(UpdateRule):
     """penalty = 2*lambda*omega*(theta - theta_star) on backbone params."""
 
+    # the state's trees shaped like ``params``: JAX layout on disk
+    PARAM_TREES = ("omega", "theta_star")
+
     def init_state(self, trainable, hyperparams, ctx, omega=None,
                    theta_star=None):
         params = trainable["params"]
@@ -82,12 +85,23 @@ class QuadRegRule(UpdateRule):
                 "heads": tree_zeros_like(trainable["heads"])}
 
     def export_aux(self, mstate):
-        return {"omega": params_to_jax(mstate["omega"]),
-                "theta_star": params_to_jax(mstate["theta_star"])}
+        return {k: params_to_jax(mstate[k]) for k in self.PARAM_TREES}
+
+    def mstate_to_jax(self, mstate):
+        return {**mstate, **self.export_aux(mstate)}
+
+    def mstate_from_jax(self, tree):
+        # epoch files of earlier port versions hold the port's own flat
+        # layout ("features.conv_0.weight"): passed through as they are
+        return {**tree, **{k: tree[k] if any("." in n for n in tree[k])
+                           else params_from_jax(tree[k])
+                           for k in self.PARAM_TREES}}
 
 
 class SIRule(QuadRegRule):
     """Adds the per-step path integral w += -(theta_new-theta_old)*g_raw."""
+
+    PARAM_TREES = QuadRegRule.PARAM_TREES + ("w",)
 
     def init_state(self, trainable, hyperparams, ctx, omega=None,
                    theta_star=None, w=None):
@@ -106,10 +120,6 @@ class SIRule(QuadRegRule):
         torch._foreach_mul_(delta, [raw_grads["params"][k] for k in names])
         w = torch._foreach_sub([mstate["w"][k] for k in names], delta)
         return {**mstate, "w": dict(zip(names, w))}
-
-    def export_aux(self, mstate):
-        return {**super().export_aux(mstate),
-                "w": params_to_jax(mstate["w"])}
 
 
 def si_consolidate(prev_params: dict, aux: dict) -> dict:

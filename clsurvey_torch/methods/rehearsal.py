@@ -42,6 +42,7 @@ per-element dropout masks)."""
 
 from __future__ import annotations
 
+import warnings
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -453,10 +454,28 @@ class ICarlRule(UpdateRule):
 # host lifecycle
 # ---------------------------------------------------------------------------
 
-def _load_memory(model: dict, fallback_fn) -> dict:
+def _warn_missing_aux(manager, what: str) -> None:
+    """From task 2 on, the previous model is one this method trained
+    itself, and its ``method_aux`` should hold the ``what`` it replays. A
+    best model written mid-attempt by an aux_heavy rule carries none (in
+    both packages), and the method would then start afresh and replay
+    nothing of the earlier tasks: say so loudly, naming the file. Task 1's
+    previous model (the shared base model or a fresh init) has none by
+    design."""
+    if manager.task_counter <= 1:
+        return
+    msg = (f"WARNING: {manager.previous_task_model_path} carries no "
+           f"method_aux['{what}']; starting an empty {what}, so nothing of "
+           f"tasks 1-{manager.task_counter - 1} is replayed")
+    manager.log(msg)
+    warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def _load_memory(manager, model: dict, fallback_fn) -> dict:
     aux = model.get("method_aux")
     if aux and "memory" in aux:
         return aux["memory"]
+    _warn_missing_aux(manager, "memory")
     return fallback_fn()
 
 
@@ -513,7 +532,7 @@ class GEM(Method):
             self._mem(), mem_batch=gem_chunk_rows(
                 self._mem(), manager.model_spec.batch_norm)))
         rule = engine.ctx.update_rule
-        memory = _load_memory(prev_model, lambda: fresh_task_memory(
+        memory = _load_memory(manager, prev_model, lambda: fresh_task_memory(
             manager.dataset.task_count, self._mem(),
             manager.dataset.input_size))
         mstate = rule.init_state(None, dict(hyperparams), engine.ctx,
@@ -580,7 +599,7 @@ class FinetuneRehearsalPartialMem(Method):
         assert manager.previous_task_model_path, \
             "replay baseline needs a previous/init model path"
         prev_model = io.load(manager.previous_task_model_path)
-        memory = _load_memory(prev_model, lambda: fresh_task_memory(
+        memory = _load_memory(manager, prev_model, lambda: fresh_task_memory(
             manager.dataset.task_count,
             int(self.static_hyperparams["mem_per_task"]),
             manager.dataset.input_size))
@@ -645,6 +664,7 @@ class ICARL(Method):
         kernel_c = int(np.asarray(prev_model["heads"]["kernel"]).shape[-1])
         exemplars = (prev_model.get("method_aux") or {}).get("exemplars")
         if exemplars is None:
+            _warn_missing_aux(manager, "exemplars")
             exemplars = self._fresh_exemplars(manager, kernel_c)
         # exemplar batch ratio like the baselines (ref:main_rehearsal.py)
         n_append = _n_append(args.batch_size, self._total_mem(manager),

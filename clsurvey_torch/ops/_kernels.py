@@ -8,8 +8,10 @@ library name carries a hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
 
 ``LAUNCHES`` counts, per kernel, the launches made by the wrappers in
-``ops/preprocess.py`` and ``ops/pool.py``, and ``BATCHES`` collects the
-batch sizes they were launched at; :func:`reset_launches` clears both.
+``ops/preprocess.py`` and ``ops/pool.py``, ``ROUTES`` the pool pair's
+launches per route (``pool_fwd_vec``, ``pool_fwd_scalar``, ...), and
+``BATCHES`` collects the batch sizes they were launched at;
+:func:`reset_launches` clears all three.
 """
 
 from __future__ import annotations
@@ -40,12 +42,18 @@ SIGNATURES = {
         "clsurvey_empty_launch": (_I, _I, _P),
     },
     "pool": {
+        # the first design's entries, now the scalar route
         "clsurvey_pool_fwd": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
         "clsurvey_pool_bwd": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+        # the same with the route (0 scalar, 1 vec) chosen by the caller
+        "clsurvey_pool_fwd_route": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+        "clsurvey_pool_bwd_route": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     },
 }
 
 LAUNCHES = {"normalize_flip": 0, "pool_fwd": 0, "pool_bwd": 0}
+ROUTES = {f"{k}_{r}": 0 for k in ("pool_fwd", "pool_bwd")
+          for r in ("vec", "scalar")}
 BATCHES: dict[str, set] = {name: set() for name in LAUNCHES}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -56,6 +64,8 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         BATCHES[name].clear()
+    for name in ROUTES:
+        ROUTES[name] = 0
 
 
 def nvcc_path() -> str:
@@ -123,11 +133,15 @@ def lib(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def record_launch(rc: int, kernel: str, batch: int) -> None:
-    """Called right after each launch at batch size ``batch``: raise if it
-    returned a CUDA error code, else count it."""
+def record_launch(rc: int, kernel: str, batch: int,
+                  route: str | None = None) -> None:
+    """Called right after each launch at batch size ``batch`` (on
+    ``route``, where the kernel has routes): raise if it returned a CUDA
+    error code, else count it."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError_t {rc}")
     LAUNCHES[kernel] += 1
     BATCHES[kernel].add(int(batch))
+    if route is not None:
+        ROUTES[f"{kernel}_{route}"] += 1

@@ -6,6 +6,8 @@ Counterpart of ``clsurvey_tpu/ops/pool_pallas.py`` (``maxpool2x2`` and
 position and writes 0 at the other three. On a CUDA tensor the pair runs
 kernels B1 and B2 (``csrc/pool.cu``); on a CPU tensor it runs the plain
 PyTorch versions :func:`pool_fwd_plain` / :func:`pool_bwd_plain`.
+:func:`pool_route` picks each launch's route: ``vec`` (16-byte accesses, V
+channels a thread) where C and the pointers allow it, else ``scalar``.
 
 Ties go to the first maximum in window order, through the same three
 compares as the JAX kernel (``a>=b``, ``d>=e``, top ``>=`` bottom), which
@@ -22,6 +24,24 @@ import torch
 from clsurvey_torch.ops import _kernels
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# channels a thread of the vec route owns: 16 bytes of one window position
+VEC_WIDTH = {torch.float32: 4, torch.bfloat16: 8}
+ROUTE_CODES = {"scalar": 0, "vec": 1}
+
+
+def pool_route(x_shape, dtype: torch.dtype, data_ptrs, code_ptr: int) -> str:
+    """The route of a B1 / B2 launch on an input of ``x_shape`` (NHWC) in
+    ``dtype``: ``"vec"`` where C is a multiple of V (8 bfloat16 or 4
+    float32 channels, 16 bytes), every data pointer (B1: input and values;
+    B2: cotangent and dx) is 16-byte aligned, the code pointer V-byte
+    aligned and the sizes fit its 32-bit index math; else ``"scalar"``.
+    ``csrc/pool.cu`` refuses a vec launch this does not allow."""
+    b, h, w, c = x_shape
+    v = VEC_WIDTH.get(dtype)
+    if (v is None or c % v or any(p % 16 for p in data_ptrs) or code_ptr % v
+            or b * (h // 2) >= 2 ** 31 or w * c >= 2 ** 24):
+        return "scalar"
+    return "vec"
 
 
 def pool_fwd_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -72,12 +92,14 @@ def _pool_fwd_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     out_shape = (b, h // 2, w // 2, c)
     val = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     code = torch.empty(out_shape, dtype=torch.uint8, device=x.device)
-    fn = _kernels.lib("pool").clsurvey_pool_fwd
+    route = pool_route(x.shape, x.dtype, (x.data_ptr(), val.data_ptr()),
+                       code.data_ptr())
+    fn = _kernels.lib("pool").clsurvey_pool_fwd_route
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), val.data_ptr(), code.data_ptr(), b, h, w, c,
-                int(x.dtype == torch.bfloat16),
+                int(x.dtype == torch.bfloat16), ROUTE_CODES[route],
                 torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.record_launch(rc, "pool_fwd", b)
+    _kernels.record_launch(rc, "pool_fwd", b, route)
     return val, code
 
 
@@ -92,12 +114,14 @@ def _pool_bwd_cuda(g: torch.Tensor, code: torch.Tensor,
         raise ValueError(f"kernel B2: cotangent {tuple(g.shape)} and code "
                          f"{tuple(code.shape)} must both be {out_shape}")
     dx = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
-    fn = _kernels.lib("pool").clsurvey_pool_bwd
+    route = pool_route(x_shape, g.dtype, (g.data_ptr(), dx.data_ptr()),
+                       code.data_ptr())
+    fn = _kernels.lib("pool").clsurvey_pool_bwd_route
     with torch.cuda.device(g.device):
         rc = fn(g.data_ptr(), code.data_ptr(), dx.data_ptr(), b, h, w, c,
-                int(g.dtype == torch.bfloat16),
+                int(g.dtype == torch.bfloat16), ROUTE_CODES[route],
                 torch.cuda.current_stream(g.device).cuda_stream)
-    _kernels.record_launch(rc, "pool_bwd", b)
+    _kernels.record_launch(rc, "pool_bwd", b, route)
     return dx
 
 

@@ -29,6 +29,7 @@ import tempfile
 import torch
 
 from clsurvey_torch.ops import _kernels, preprocess as pp
+from clsurvey_torch.utils.devtime import time_ms
 
 SHAPE = (200, 64, 64, 3)
 MEAN = (0.485, 0.456, 0.406)
@@ -72,20 +73,7 @@ def build_variants(out_dir: str) -> dict:
 
 def device_ms(fn, iters: int = ITERS) -> float:
     """Device time per call of ``fn``'s kernels, as the profiler saw it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if "CUDA" in str(getattr(e, "device_type", "")))
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / iters
+    return time_ms(fn, iters=iters)[0]
 
 
 def runner(handle, x, flip, out):

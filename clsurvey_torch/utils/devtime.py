@@ -1,0 +1,79 @@
+"""Device time of a function's kernels on the card, as CUPTI sees it
+(through ``torch.profiler``), warm and on a cold L2.
+
+Used by ``chip_smoke.py`` and the kernel timing scripts
+(``ops/tune_pool.py``, ``ops/tune_preprocess.py``), so that every number
+they print is taken the same way. Needs a CUDA card; the profiler is
+imported inside each function."""
+
+from __future__ import annotations
+
+import torch
+
+
+def kernel_us(prof) -> dict:
+    """{kernel name: total device us} of the kernels a profiler saw."""
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))}
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
+    """(device_ms, event_ms) per call of ``fn``. device_ms is the summed
+    device time of the kernels ``fn`` launches; event_ms is CUDA-event time
+    over ``iters`` back-to-back calls, which for a short kernel is bounded
+    by the host's time per call rather than by the kernel. Back-to-back
+    calls on one input keep it in the 50 MB L2 where it fits: warm."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / iters
+    # CUPTI now and then hands the profiler no kernel records: try again
+    # before calling it a failure
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device_ms = sum(kernel_us(prof).values()) / 1e3 / iters
+        if device_ms > 0:
+            return device_ms, event_ms
+    raise AssertionError("the profiler saw no device time, three times")
+
+
+def cold_ms(fn, flush, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` on a cold L2: ``flush()``, which
+    overwrites a buffer larger than the L2, runs before each call, and its
+    kernels, named by a profile of ``flush`` alone, are left out of the
+    sum. ``fn`` must launch the same kernels on every call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush()
+            torch.cuda.synchronize()
+        skip = set(kernel_us(prof))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        kept = [e for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))
+                and e.key not in skip]
+        us = sum(e.self_device_time_total for e in kept)
+        # a profile that lost some kernel records (CUPTI drops a share
+        # now and then) counts launches that are not a whole number of
+        # calls, and would read low: take it again
+        if skip and us > 0 and all(e.count % iters == 0 for e in kept):
+            return us / 1e3 / iters
+    raise AssertionError("the profiler saw no whole profile, three times")

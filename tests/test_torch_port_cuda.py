@@ -13,7 +13,9 @@ need not have; nothing here uses it.)
   vector kernel (width a multiple of 8), its scalar kernel (any width, a
   pointer that is not 16-byte aligned) and the two against each other;
 - kernels B1/B2 (pool forward / backward): bit-equal values, codes and dx,
-  float32 and bfloat16, tie-heavy inputs, even and odd sizes;
+  float32 and bfloat16, tie-heavy inputs, even and odd sizes, on the vec
+  route (C a multiple of 16 bytes, aligned) and the scalar route (other C,
+  an input one element off), each launch counted on its route;
 - the pool pair under ``torch.func.vmap(grad)``: one launch each, equal to
   a per-sample loop;
 - the backbone on the card against the same backbone on the CPU."""
@@ -100,18 +102,42 @@ def test_pool_under_vmap_grad_is_one_launch_each(cuda):
     torch.testing.assert_close(got, loop, rtol=1e-6, atol=1e-6)
 
 
+def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t``'s values in a tensor whose base pointer is ``offset`` elements
+    past an allocation's start (1: not 16-byte aligned)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(200, 64, 64, 64), (200, 8, 8, 128),
-                                   (6, 9, 7, 64), (3, 2, 3, 5)])
-def test_pool_kernels_match_plain(cuda, dtype, shape):
+                                   (6, 9, 7, 64), (3, 2, 3, 5),
+                                   (4, 6, 8, 8), (5, 7, 6, 12),
+                                   (2, 4, 4, 512)])
+def test_pool_kernels_match_plain(cuda, dtype, shape, offset):
+    """Bit-equal values, codes and dx on both routes: the vec route where C
+    is a multiple of V (4 float32, 8 bfloat16) and the input is aligned,
+    the scalar route at other C and at an input one element off; each
+    launch counted on the route :func:`pool.pool_route` names."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randint(0, 3, shape, device=cuda, generator=gen).to(dtype)
+    x = _offset(torch.randint(0, 3, shape, device=cuda,
+                              generator=gen).to(dtype), offset)
+    route = "vec" if offset == 0 and shape[3] % pool.VEC_WIDTH[dtype] == 0 \
+        else "scalar"
+    before = dict(_kernels.ROUTES)
     val, code = pool.pool_fwd(x)
     pval, pcode = pool.pool_fwd_plain(x)
     assert torch.equal(val, pval) and torch.equal(code, pcode)
-    g = torch.randn(val.shape, device=cuda, generator=gen).to(dtype)
+    g = _offset(torch.randn(val.shape, device=cuda, generator=gen).to(dtype),
+                offset)
     assert torch.equal(pool.pool_bwd(g, code, x.shape),
                        pool.pool_bwd_plain(g, code, x.shape))
+    launched = {k: _kernels.ROUTES[k] - before[k] for k in before}
+    assert launched == {f"pool_{k}_{r}": int(r == route)
+                        for k in ("fwd", "bwd") for r in ("vec", "scalar")}
 
 
 def test_pool_autograd_matches_max_pool2d(cuda):

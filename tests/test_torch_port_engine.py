@@ -9,6 +9,10 @@ the JAX package's batch rounding on its 8-device test mesh never applies).
   accuracy within one val sample;
 - ``evaluate``: the same accuracy and per-class counters."""
 
+import json
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +22,7 @@ import torch
 from clsurvey_torch.data import registry as tdata
 from clsurvey_torch.engine import train as ttrain
 from clsurvey_torch.methods.base import UpdateRule as TRule
-from clsurvey_torch.models import registry as treg
+from clsurvey_torch.models import convert as tconvert, registry as treg
 from clsurvey_torch.utils import config as tconfig, io as tio
 from clsurvey_tpu.engine import train as jtrain
 from clsurvey_tpu.methods.base import UpdateRule as JRule
@@ -194,9 +198,104 @@ def test_evaluate_matches(shared_model):
     np.testing.assert_array_equal(pct_t, pct_j)
 
 
+def _leaves_equal(got, want, where: str = "") -> None:
+    """Two host trees (dicts, lists, numpy arrays, Python scalars) with the
+    same structure and bit-equal leaves."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), where
+        for k in want:
+            _leaves_equal(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _leaves_equal(g, w, f"{where}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray), where
+        assert got.dtype == want.dtype and got.shape == want.shape, where
+        np.testing.assert_array_equal(got, want, err_msg=where)
+    else:
+        assert type(got) is type(want) and got == want, where
+
+
+def _jax_orbax_checkpoint(tmp_path, name, jrule, trtrule, hyper, epochs):
+    """The JAX engine trains task 1 of synthetic_2t_4c_32px for ``epochs``
+    epochs with ``jrule``, a resume checkpoint every epoch: where orbax is
+    importable it leaves ``epoch.pth.tar`` with its trees in
+    ``epoch.pth.tar.orbax``. Returns (task data, the port's context with
+    ``trtrule``, the JAX-made init model, the job's keyword arguments)."""
+    spec_j = jreg.parse_model_name("", name, (PX, PX))
+    spec_t = treg.parse_model_name("", name, (PX, PX))
+    model = jio.to_host(jreg.init_model_state(
+        spec_j, jax.random.PRNGKey(3), max_tasks=2, classes_per_task=4))
+    common = dict(task=0, n_tasks=1, class_counts=[4, 4], mean=MEAN,
+                  std=STD, augment=False)
+    ctx_j = jtrain.make_context(spec_j, update_rule=jrule, mesh=None,
+                                **common)
+    ctx_t = ttrain.make_context(spec_t, update_rule=trtrule, device="cpu",
+                                **common)
+    td = tdata.parse("synthetic_2t_4c_32px").get_task_dataset(1)
+    trainable = _jax_trainable({"params": model["params"],
+                                "heads": {k: model["heads"][k]
+                                          for k in ("kernel", "bias")}})
+    state_j = jtrain.TrainState(
+        trainable, _jax_trainable(model.get("batch_stats", {})),
+        jtrain.tree_zeros_like(trainable),
+        jrule.init_state(trainable, hyper, ctx_j))
+    job = dict(exp_dir=str(tmp_path), batch_size=32, lr=1e-2, saving_freq=1)
+    jtrain.train_task(jtrain.Engine(ctx_j),
+                      jtrain.TrainJob(num_epochs=epochs, **job), state_j, td,
+                      log=lambda *_: None)
+    return td, ctx_t, model, job
+
+
+def _resumes_from_orbax(tmp_path, name, jrule, trule, hyper):
+    """The JAX engine stops after 2 of 3 epochs, leaving an Orbax resume
+    directory; the port reads it to the trees that the JAX package's
+    ``orbax_io.load`` gives, leaf for leaf, builds its state from them
+    exactly, and its ``train_task`` finishes the last epoch. Returns the
+    resumed and the final state."""
+    from clsurvey_torch.utils import orbax_io as torbax
+    from clsurvey_tpu.utils import orbax_io as jorbax
+
+    if not jorbax.available():
+        pytest.skip("orbax is not installed: the JAX engine writes a "
+                    "plain pickle")
+    td, ctx_t, model, job = _jax_orbax_checkpoint(tmp_path, name, jrule,
+                                                  trule, hyper, epochs=2)
+    ckpt = str(tmp_path / "epoch.pth.tar")
+    ck = jio.load(ckpt)
+    assert ck["epoch"] == 1 and os.path.isdir(ck["orbax_state"])
+    assert "trainable" not in ck
+    want = jorbax.load(ck["orbax_state"])
+    _leaves_equal(torbax.load(ck["orbax_state"]), want)
+    _, resumed = ttrain._load_resume(ckpt, "cpu", trule)
+    _leaves_equal(ttrain.trainable_to_host(resumed.trainable),
+                  want["trainable"])
+    _leaves_equal(ttrain.trainable_to_host(resumed.momentum),
+                  want["momentum"])
+    _leaves_equal(tconvert.batch_stats_to_jax(resumed.batch_stats),
+                  want["batch_stats"])
+    _leaves_equal(tio.to_host(trule.mstate_to_jax(resumed.mstate)),
+                  want["mstate"])
+
+    lines = []
+    state = ttrain.state_from_model(model, None, "cpu")
+    state.mstate = trule.init_state(state.trainable, hyper, ctx_t)
+    _, _, final = ttrain.train_task(
+        ttrain.Engine(ctx_t), ttrain.TrainJob(num_epochs=3, **job), state,
+        td, log=lines.append)
+    assert any("resumed epoch 2" in line for line in lines)
+    after = jio.load(ckpt)  # the port writes a plain pickle
+    assert after["epoch"] == 2 and "orbax_state" not in after
+    with open(tmp_path / "error_history.json") as f:
+        assert len(json.load(f)["error_history"]) == 3
+    return resumed, final
+
+
 def test_resume_checkpoint_round_trip(shared_model, tmp_path):
     """A port-written epoch checkpoint (JAX layout, plain pickle) resumes
-    to the same state, and an Orbax-pointing one raises clearly."""
+    to the same state, and so does one the JAX engine wrote through
+    Orbax."""
     td = tdata.parse("synthetic_2t_4c_32px").get_task_dataset(1)
     _, ctx_t = _contexts()
     engine = ttrain.Engine(ctx_t)
@@ -210,7 +309,91 @@ def test_resume_checkpoint_round_trip(shared_model, tmp_path):
     _, resumed = ttrain._load_resume(str(tmp_path / "epoch.pth.tar"), "cpu")
     _assert_trees_close(ttrain.trainable_to_host(resumed.momentum),
                         ttrain.trainable_to_host(final.momentum), atol=0)
-    tio.save({**ck, "orbax_state": "elsewhere"},
+    _resumes_from_orbax(tmp_path / "orbax", NAME, JRule(), TRule(), {})
+
+
+def test_resume_si_with_batch_stats_from_orbax(tmp_path):
+    """SI's method state (nested dicts: the hyperparameter scalars and
+    three params-shaped trees, which the port keeps in its own layout) and
+    a batch-norm model's statistics, resumed from the JAX engine's Orbax
+    directory; the port's own checkpoint of the finished epoch holds them
+    in the JAX layout again."""
+    from clsurvey_torch.methods.reg_based import SIRule as TSIRule
+    from clsurvey_tpu.methods.reg_based import SIRule as JSIRule
+
+    resumed, final = _resumes_from_orbax(
+        tmp_path, NAME + "_BN", JSIRule(), TSIRule(), {"lambda": 0.5})
+    assert set(resumed.mstate) == {"hyper", "omega", "theta_star", "w"}
+    assert set(resumed.mstate["w"]) == set(resumed.trainable["params"])
+    assert bool(resumed.mstate["w"]["features.conv_0.weight"].abs().sum())
+    assert resumed.batch_stats and all(
+        bool(torch.isfinite(v).all()) for v in final.batch_stats.values())
+    ck = jio.load(str(tmp_path / "epoch.pth.tar"))
+    assert set(ck["mstate"]["w"]) == set(ck["trainable"]["params"])
+
+
+def _unconverted_rules():
+    from clsurvey_torch.methods import ebll, lwf, packnet, rehearsal
+
+    return {"LwFRule": lwf.LwFRule(), "EBLLRule": ebll.EBLLRule(),
+            "PackNetRule": packnet.PackNetRule(task_id=1),
+            "GEMRule": rehearsal.GEMRule(n_memories=8),
+            "ReplayRule": rehearsal.ReplayRule(n_memories=8, n_append=4),
+            "ICarlRule": rehearsal.ICarlRule(n_append=4)}
+
+
+@pytest.mark.parametrize("rule_name", ["LwFRule", "EBLLRule", "PackNetRule",
+                                       "GEMRule", "ReplayRule", "ICarlRule"])
+def test_orbax_resume_of_an_unconverted_method_state_raises(tmp_path,
+                                                            rule_name):
+    """A rule whose method state the port does not convert from the JAX
+    layout refuses a JAX-written Orbax epoch checkpoint up front, naming
+    the rule and the ROADMAP queue, instead of training on a mis-laid
+    state."""
+    tio.save({"epoch": 0, "lr": 1e-2, "best_acc": 0.0, "val_beat_counts": 0,
+              "orbax_state": str(tmp_path / "epoch.pth.tar.orbax")},
              str(tmp_path / "epoch.pth.tar"))
-    with pytest.raises(RuntimeError, match="Orbax"):
-        ttrain.train_task(engine, job, state, td, log=lambda *_: None)
+    with pytest.raises(RuntimeError, match=f"{rule_name}.*queue 3"):
+        ttrain._load_resume(str(tmp_path / "epoch.pth.tar"), "cpu",
+                            _unconverted_rules()[rule_name])
+
+
+def test_resume_si_epoch_file_in_the_ports_own_layout(shared_model,
+                                                      tmp_path):
+    """SI's epoch checkpoints written by earlier port versions hold
+    omega / theta_star / w in the port's flat layout; they still resume,
+    to the same tensors."""
+    from clsurvey_torch.methods.reg_based import SIRule as TSIRule
+
+    _, ctx_t = _contexts()
+    state = ttrain.state_from_model(shared_model, None, "cpu")
+    rule = TSIRule()
+    mstate = rule.init_state(state.trainable, {"lambda": 0.5}, ctx_t)
+    gen = torch.Generator().manual_seed(0)
+    for k in TSIRule.PARAM_TREES:
+        mstate[k] = {n: torch.randn(t.shape, generator=gen)
+                     for n, t in mstate[k].items()}
+    tio.save({"epoch": 0, "lr": 1e-2, "best_acc": 0.0, "val_beat_counts": 0,
+              "trainable": ttrain.trainable_to_host(state.trainable),
+              "batch_stats": {},
+              "momentum": ttrain.trainable_to_host(state.momentum),
+              "mstate": tio.to_host(mstate)},
+             str(tmp_path / "epoch.pth.tar"))
+    _, resumed = ttrain._load_resume(str(tmp_path / "epoch.pth.tar"), "cpu",
+                                     rule)
+    for k in TSIRule.PARAM_TREES:
+        assert set(resumed.mstate[k]) == set(mstate[k])
+        for n, t in mstate[k].items():
+            assert torch.equal(resumed.mstate[k][n], t), (k, n)
+    assert float(resumed.mstate["hyper"]["lambda"]) == 0.5
+
+
+def test_orbax_resume_without_tensorstore_names_it(tmp_path, monkeypatch):
+    """Where tensorstore is not importable, an Orbax-pointing epoch
+    checkpoint raises, and the message says what is missing."""
+    tio.save({"epoch": 0, "lr": 1e-2, "best_acc": 0.0, "val_beat_counts": 0,
+              "orbax_state": str(tmp_path / "epoch.pth.tar.orbax")},
+             str(tmp_path / "epoch.pth.tar"))
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(RuntimeError, match="tensorstore"):
+        ttrain._load_resume(str(tmp_path / "epoch.pth.tar"), "cpu")

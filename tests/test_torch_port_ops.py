@@ -241,3 +241,26 @@ def test_cpu_tensors_take_the_plain_versions():
     pp.preprocess(torch.zeros(2, 4, 4, 3, dtype=torch.uint8), MEAN, STD)
     assert _kernels.LAUNCHES == {"normalize_flip": 0, "pool_fwd": 0,
                                  "pool_bwd": 0}
+
+
+@pytest.mark.parametrize("x_shape, dtype, data_ptrs, code_ptr, route", [
+    # the main path: C 64 / 128, fresh (256-byte aligned) allocations
+    ((200, 64, 64, 64), torch.bfloat16, (256, 512), 1024, "vec"),
+    ((200, 8, 8, 128), torch.float32, (256, 512), 1024, "vec"),
+    # C a multiple of 4 but not of 8: vec in float32 only
+    ((5, 7, 6, 12), torch.float32, (256, 512), 1024, "vec"),
+    ((5, 7, 6, 12), torch.bfloat16, (256, 512), 1024, "scalar"),
+    ((3, 2, 3, 5), torch.float32, (256, 512), 1024, "scalar"),
+    # a data pointer one element past 16 bytes, either one of the two
+    ((200, 64, 64, 64), torch.float32, (260, 512), 1024, "scalar"),
+    ((200, 64, 64, 64), torch.bfloat16, (256, 514), 1024, "scalar"),
+    # the code pointer needs V bytes: 4 (float32), 8 (bfloat16)
+    ((200, 64, 64, 64), torch.float32, (256, 512), 1028, "vec"),
+    ((200, 64, 64, 64), torch.bfloat16, (256, 512), 1028, "scalar"),
+    # a dtype without kernels, and a row past the 32-bit index math
+    ((2, 4, 4, 64), torch.float16, (256, 512), 1024, "scalar"),
+    ((1, 2, 2 ** 17, 128), torch.float32, (256, 512), 1024, "scalar"),
+])
+def test_pool_route_is_a_function_of_shape_dtype_and_pointers(
+        x_shape, dtype, data_ptrs, code_ptr, route):
+    assert pool.pool_route(x_shape, dtype, data_ptrs, code_ptr) == route

@@ -392,3 +392,32 @@ def test_memories_and_exemplars_cross_between_packages(jax_icarl, tmp_path):
         treh.memory_on(tio.load(str(tmp_path / "j.pth"))["memory"], "cpu"),
         mem_j)
     _assert_memory_equal(mem_t, mem_j)
+
+
+@pytest.mark.parametrize("task", [1, 2])
+def test_a_lost_memory_is_loud_from_task_2_on(task, recwarn):
+    """A previous model without ``method_aux``: at task 1 it is the shared
+    base model or a fresh init and a fresh memory is right; from task 2 on
+    the method trained it itself, so the fresh memory loses every earlier
+    task's replay, and a warning names the file."""
+    import types
+
+    lines = []
+    manager = types.SimpleNamespace(
+        task_counter=task, log=lines.append,
+        previous_task_model_path="/runs/task_1/best_model.pth.tar")
+    fresh = {"mem_cnt": 0}
+    assert treh._load_memory(manager, {"params": {}}, lambda: fresh) is fresh
+    warned = [str(w.message) for w in recwarn.list
+              if issubclass(w.category, RuntimeWarning)]
+    if task == 1:
+        assert not warned and not lines
+    else:
+        assert len(warned) == 1 and warned == lines
+        assert "/runs/task_1/best_model.pth.tar" in warned[0]
+        assert "method_aux['memory']" in warned[0]
+    # a model that carries its memory loads it, silently
+    kept = {"mem_cnt": 5}
+    assert treh._load_memory(manager, {"method_aux": {"memory": kept}},
+                             lambda: fresh) is kept
+    assert len(lines) == (task > 1)
