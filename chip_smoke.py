@@ -41,7 +41,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    encoders in EBLL's models, the merged models and precision caches, the
    batch-norm statistics, the result dicts, and one distillation value and
    one mode-IMM Fisher on the card against the CPU;
-6. rehearsal: on synthetic_3t_20c_64px_400n with its own SI base model,
+6. rehearsal: on synthetic_3t_20c_64px_200n with its own SI base model,
    GEM and ICARL (1024 memories a task), the two replay baselines and
    PackNet through the timing_mode CLI with ``--test`` and one attempt a
    task, counters zeroed before each; checks the memories in the best
@@ -67,7 +67,22 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    bit-identical in task 2's model, prints the card-vs-CPU gap of its
    eval batch layer by layer with cuDNN's autotuner on and off, holds one
    eval entry card vs CPU, and times one batch-64 step;
-8. protocol: bench.py's throughput point (20k random uint8 rows, batch
+8. alexnet: kernel A held exact and timed (warm, cold L2, byte bound) at
+   AlexNet's (200, 224, 224, 3); the port's float32 convs (AlexNet's and
+   small_VGG9's, batch 200) against float64; bench.py's AlexNet point (224
+   px, batch 200, 25 classes, 4,000 random rows) through the port's Engine
+   in bf16 and float32 (img/s, ``mfu`` against the dense peak, device busy share,
+   launches a step, top kernels, the first conv's cost, peak memory; A
+   launches, no pool kernel); a RecogSeq-shaped tree of 224-px JPEGs
+   prepared by the port and ``alexnet`` finetuning on ``recogseq`` through
+   the timing_mode CLI (A only; one eval entry card vs CPU); a fake
+   tiny-imagenet-200 prepared by the port and small_VGG9 finetuning on
+   ``tiny`` for 2 tasks (A, B1, B2, the vec route); a HATAlexNet step's
+   gradient (float32 on the card against float64 on the CPU on the card's
+   ReLU and pool decisions, float64 against float64), a PathNetAlexNet
+   eval entry and EBLL's code term on AlexNet's conv features, card vs
+   CPU at 224 px;
+9. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
 
@@ -77,17 +92,19 @@ The kernels phase also holds A, B1 and B2 at batch sizes 1, 67, 128 and
 1024 (``REHEARSAL_BATCHES``); every other size the rehearsal and masks
 phases hand them (iCaRL's 144 + 56 split, the baselines' exemplar rows,
 herding and val tails, PathNet's batch of 64 and its tournament's 256-row
-eval and tail) is held right after those phases, so every size the path
-used is held.
+eval and tail, the tiny run's) is held right after those phases, and A at
+224 px at every size of the RecogSeq run, so every size the path used is
+held.
 
 Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
 before the last is the ``{"kernels": [...]}`` record (A in float32, B1 and
 B2 in float32 and bfloat16; ``ms`` warm, ``cold_ms`` on a cold L2, summed
 over the step's shapes, ``shape_routes`` the route of each): ``launches``
 is the count of the ``cli`` run, ``launches_framework``,
-``launches_methods``, ``launches_rehearsal`` and ``launches_masks`` hold
-each method's own count (in a partial run the counts are null for the
-phases that did not run), ``held_batches`` the batch sizes held against
+``launches_methods``, ``launches_rehearsal``, ``launches_masks`` and
+``launches_alexnet`` hold each run's own count (in a partial run the
+counts are null for the phases that did not run; A's rows at AlexNet's
+shape are under ``shapes``), ``held_batches`` the batch sizes held against
 the plain versions; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -152,7 +169,9 @@ def bound_ms(n_bytes: int) -> float:
 
 def phase_card(card: str) -> None:
     from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.utils.device import resolve
 
+    resolve("cuda")  # the port's numerics (TF32 off) for every phase
     log(card)
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "device", torch.cuda.get_device_name(0),
@@ -566,7 +585,10 @@ def check_cli_model(manager, model: dict) -> None:
 
 FRAMEWORK_MODEL = "small_VGG9_cl_128_128"
 FRAMEWORK_DS = "synthetic_2t_20c_64px_400n"  # two tasks: one Phase-2 task
-REHEARSAL_DS = "synthetic_3t_20c_64px_400n"  # GEM's QP: two constraints
+# GEM's QP: two constraints. 200 train rows a class, not 400, to keep the
+# whole script under 600 s beside the alexnet phase: still above iCaRL's
+# 153 exemplars a class and GEM's 1,024 memories a task
+REHEARSAL_DS = "synthetic_3t_20c_64px_200n"
 FRAMEWORK_METHODS = ("SI", "EWC", "MAS")
 MAX_ATTEMPTS = 2
 # one attempt a task in the rehearsal phase: the cut that keeps the whole
@@ -637,7 +659,7 @@ def eval_matrix(manager) -> list:
     from clsurvey_torch.utils import io, paths
 
     name = manager.method.eval_name
-    n = manager.dataset.task_count
+    n = manager.args.max_task_count or manager.dataset.task_count
     out_dir = paths.get_test_results_path(
         manager.dataset.name, name, manager.model_spec.name, "timing_mode",
         manager.exp_name, create=False)
@@ -1653,6 +1675,714 @@ def check_pathnet(manager, matrix) -> dict:
     return {"frozen_module_slices": frozen, **out}
 
 
+# ---------------------------------------------------------------------------
+# alexnet: AlexNet at 224 px, and the image-folder datasets
+# ---------------------------------------------------------------------------
+
+ALEX_PX, ALEX_BS, ALEX_CLASSES, ALEX_ROWS = 224, 200, 25, 4000
+ALEX_SHAPE = (ALEX_BS, ALEX_PX, ALEX_PX, 3)
+# NVIDIA's H100 SXM data sheet, dense: bf16 on the tensor cores; float32
+# outside them (TF32 stays off for parity)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the RecogSeq-shaped tree: classes a task (3-6), and 224-px images a
+# class in each dataset's train and test list. timing_mode trains the
+# first 4 tasks, of 3 and 4 classes; their image counts give each of them
+# 96 train, 84 val and 12 test rows (``recogseq.prepare`` keeps int(0.9 n)
+# of a class's n test images for val), so cuDNN's autotuner meets one set
+# of batch shapes (each new one costs it seconds at 224 px) while the
+# head widths differ. The other 4 tasks are only prepared.
+RECOGSEQ_CLASSES = (3, 4, 3, 4, 5, 6, 5, 6)
+RECOGSEQ_IMAGES = {3: (32, 32), 4: (24, 24)}  # (train, test) a class
+RECOGSEQ_UNTRAINED_IMAGES = (4, 4)
+
+
+def alexnet_train_flops_per_img(n_classes: int = ALEX_CLASSES) -> float:
+    """Forward + backward FLOPs of one 224-px image through AlexNet and a
+    head of ``n_classes``: 2*H*W*k^2*Cin*Cout per conv and 2*in*out per
+    dense layer forward, x3 for training (``bench.py:52-65``'s count)."""
+    convs = [(55, 11, 3, 64), (27, 5, 64, 192), (13, 3, 192, 384),
+             (13, 3, 384, 256), (13, 3, 256, 256)]
+    flops = sum(2.0 * hw * hw * k * k * cin * cout
+                for hw, k, cin, cout in convs)
+    feat = 6 * 6 * 256
+    for d in (4096, 4096, n_classes):
+        flops += 2.0 * feat * d
+        feat = d
+    return 3.0 * flops
+
+
+def check_preprocess_224(gen) -> list:
+    """Kernel A at AlexNet's batch (200, 224, 224, 3), with and without a
+    flip mask, in both dtypes, against its plain version (f32 <= 1 ulp,
+    bf16 exact), then timed warm and on a cold L2 against its byte bound
+    (each input byte read once, each output byte written once). Returns
+    one row per dtype for the ``kernels`` record."""
+    from clsurvey_torch.ops import preprocess as pp
+
+    x = torch.randint(0, 256, ALEX_SHAPE, dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    flip = torch.randint(0, 2, (ALEX_BS,), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        err = 0.0
+        for mask in (flip, None):
+            err = max(err, _preprocess_agrees(
+                pp.preprocess(x, MEAN, STD, mask, dtype),
+                pp.normalize_flip_plain(x, MEAN, STD, mask, dtype), dtype,
+                "alexnet 224"))
+        out_bytes = x.numel() * (4 if dtype == torch.float32 else 2)
+        kernel = lambda d=dtype: pp.preprocess(x, MEAN, STD, flip, d)
+        row = _timings(
+            {"shape": list(ALEX_SHAPE), "dtype": str(dtype),
+             "path": "vec, alexnet 224", "main": False,
+             "max_abs_err": err,
+             "bound_ms": bound_ms(x.numel() + flip.numel() + out_bytes)},
+            kernel=None,
+            plain=lambda d=dtype: pp.normalize_flip_plain(x, MEAN, STD, flip,
+                                                          d),
+            library=None)
+        row["kernel_ms"], row["kernel_event_ms"] = time_ms(kernel)
+        row["cold_ms"] = cold_ms(kernel, scratch.bitwise_not_)
+        log(f"kernel A [alexnet 224] {dtype} {list(ALEX_SHAPE)}: "
+            f"{row['kernel_ms']:.5f} ms warm, {row['cold_ms']:.5f} ms cold "
+            f"(bound {row['bound_ms']:.5f}, "
+            f"{100 * row['bound_ms'] / row['cold_ms']:.0f}% of it reached "
+            f"cold); plain {row['plain_ms']:.5f} ms; max |diff| {err}")
+        rows.append(row)
+    return rows
+
+
+def _no_pool_launches(launches: dict, what: str) -> None:
+    if launches["normalize_flip"] <= 0:
+        raise AssertionError(f"{what}: kernel A never launched")
+    if launches["pool_fwd"] or launches["pool_bwd"]:
+        raise AssertionError(f"{what}: a pool kernel launched on AlexNet's "
+                             f"path: {launches}")
+
+
+def _first_conv_ms(dtype, gen) -> dict:
+    """AlexNet's first conv (C_in 3, 11x11/4, 64 out) alone at batch 200,
+    through the port's ``ops.conv.conv2d``: forward and weight gradient (a
+    step computes no input gradient there), device and event ms, and its
+    FLOP bound."""
+    from clsurvey_torch.ops.conv import conv2d
+
+    x = torch.randn(ALEX_BS, 3, ALEX_PX, ALEX_PX, device="cuda",
+                    generator=gen).to(dtype).contiguous(
+                        memory_format=torch.channels_last)
+    w = (torch.randn(64, 3, 11, 11, device="cuda", generator=gen) * 0.01).to(
+        dtype).contiguous(memory_format=torch.channels_last).requires_grad_()
+    b = torch.zeros(64, device="cuda", dtype=dtype, requires_grad=True)
+
+    def step():
+        y = torch.relu(conv2d(x, w, b, stride=4, padding=2))
+        torch.autograd.grad(y.float().sum(), (w, b))
+
+    device_ms, event_ms = time_ms(step, iters=10, warmup=3)
+    flops = 2 * 2.0 * ALEX_BS * 55 * 55 * 121 * 3 * 64  # fwd + wgrad
+    return {"device_ms": device_ms, "event_ms": event_ms,
+            "flop_bound_ms": flops / PEAK_FLOPS[dtype] * 1e3}
+
+
+def alexnet_protocol(card: str) -> dict:
+    """bench.py's AlexNet point (``bench.py:226-268``) through the port's
+    Engine: 224 px, batch 200, 25 classes, lr 5e-3, flips on, 4,000 random
+    uint8 rows on the card; best of three timed epochs after a warm-up, in
+    bf16 and in float32, then 10 profiled steps of each, with the launch
+    counters zeroed before each dtype's epochs (kernel A must launch, no
+    pool kernel). Returns {run: launches}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clsurvey_torch.engine.train import (Engine, make_context,
+                                             state_from_model)
+    from clsurvey_torch.methods.base import UpdateRule
+    from clsurvey_torch.models.registry import ModelSpec, init_model_state
+    from clsurvey_torch.ops import _kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    images = torch.randint(0, 255, (ALEX_ROWS, ALEX_PX, ALEX_PX, 3),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    labels = torch.randint(0, ALEX_CLASSES, (ALEX_ROWS,), device="cuda",
+                           generator=gen)
+    flops_img = alexnet_train_flops_per_img()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        spec = ModelSpec(name="alexnet", arch="alexnet",
+                         input_size=(ALEX_PX, ALEX_PX), compute_dtype=dtype)
+        model = init_model_state(spec, seed=7, max_tasks=10,
+                                 classes_per_task=ALEX_CLASSES)
+        rule = UpdateRule()
+        ctx = make_context(spec, task=0, n_tasks=1,
+                           class_counts=[ALEX_CLASSES] * 10, mean=MEAN,
+                           std=STD, update_rule=rule, augment=True,
+                           device="cuda")
+        engine = Engine(ctx)
+        state = state_from_model(model, None, ctx.device)
+        state.mstate = rule.init_state(state.trainable, {}, ctx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        per_epoch = []
+        for epoch in range(4):  # epoch 0 warms up cuDNN's algorithm choice
+            perm = torch.randperm(ALEX_ROWS, device="cuda", generator=gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = engine.train_epoch(state, images, labels, perm,
+                                                gen, 5e-3, ALEX_BS)
+            loss = float(metrics["loss"])
+            per_epoch.append(time.perf_counter() - t0)
+            if loss != loss or abs(loss) == float("inf"):
+                raise AssertionError(f"alexnet224 {tag} epoch {epoch}: "
+                                     f"loss {loss}")
+        launches = dict(_kernels.LAUNCHES)
+        _no_pool_launches(launches, f"alexnet224 {tag}")
+        out[f"alexnet224_{tag}"] = launches
+        steps = ALEX_ROWS // ALEX_BS
+        best = min(per_epoch[1:])
+        img_s = steps * ALEX_BS / best
+        peak = torch.cuda.max_memory_allocated()
+
+        perm = torch.randperm(ALEX_ROWS, device="cuda",
+                              generator=gen)[: 10 * ALEX_BS]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = engine.train_epoch(state, images, labels, perm,
+                                                gen, 5e-3, ALEX_BS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if "CUDA" in str(getattr(e, "device_type", ""))]
+        device_ms = sum(kernel_us(prof).values()) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+        conv0 = _first_conv_ms(dtype, gen)
+        log(json.dumps({
+            "alexnet224": f"Engine train, bs {ALEX_BS}, {ALEX_CLASSES} "
+                          f"classes, {ALEX_ROWS} rows, flips on",
+            "dtype": str(dtype), "img_per_s": img_s,
+            "ms_per_step": best / steps * 1e3, "epoch_s": per_epoch,
+            "train_gflop_per_img": flops_img / 1e9,
+            "model_tflop_per_s": flops_img * img_s / 1e12,
+            "mfu": flops_img * img_s / PEAK_FLOPS[dtype],
+            "peak_flops": PEAK_FLOPS[dtype],
+            "max_memory_allocated": peak, "launches": launches,
+            "profile": {
+                "steps": 10, "wall_ms": wall_ms, "device_ms": device_ms,
+                "device_busy_share": device_ms / wall_ms if wall_ms else None,
+                "launches_per_step": sum(e.count for e in events) / 10,
+                "top": [{"name": e.key[:80],
+                         "ms": e.self_device_time_total / 1e3,
+                         "calls": e.count} for e in top]},
+            "first_conv_fwd_wgrad": {
+                **conv0, "share_of_step_device_ms":
+                    conv0["device_ms"] / (device_ms / 10)},
+            "card": card}))
+        del state, engine, ctx
+    return out
+
+
+def _write_jpegs(jobs) -> None:
+    """Write (path, uint8 HWC array) pairs as JPEGs, 8 at a time (PIL's
+    encoder releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def write(job):
+        Image.fromarray(job[1]).save(job[0], quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+
+
+def _recogseq_tree(raw: str) -> int:
+    """RecogSeq's layout (``<raw>/<dataset>/{train,test}/<class>/<img>``):
+    8 datasets of 3-6 classes, 224-px JPEGs: a colour per class, and per
+    image a ramp of its own slope (smooth images: quick to encode, and to
+    compress into the npz). Returns the number of images."""
+    import numpy as np
+
+    from clsurvey_torch.data.recogseq import TASKS
+
+    rng = np.random.default_rng(5)
+    ramp = np.linspace(0, 1, ALEX_PX, dtype=np.float32)
+    jobs = []
+    for task, (name, n_cls) in enumerate(zip(TASKS, RECOGSEQ_CLASSES)):
+        counts = (RECOGSEQ_IMAGES[n_cls] if task < 4
+                  else RECOGSEQ_UNTRAINED_IMAGES)
+        for c in range(n_cls):
+            base = rng.uniform(30, 190, 3).astype(np.float32)
+            for split, n in zip(("train", "test"), counts):
+                d = os.path.join(raw, name, split, f"class_{c}")
+                os.makedirs(d)
+                for j in range(n):
+                    slope = rng.uniform(-60, 60, 2).astype(np.float32)
+                    img = (base[None, None, :]
+                           + slope[0] * ramp[:, None, None]
+                           + slope[1] * ramp[None, :, None])
+                    jobs.append((os.path.join(d, f"{j}.jpg"),
+                                 np.clip(img, 0, 255).astype(np.uint8)))
+    _write_jpegs(jobs)
+    return len(jobs)
+
+
+def _hold_preprocess_224(sizes) -> None:
+    """Kernel A at every batch size the RecogSeq run used, at 224 px,
+    against its plain version (f32 within 1 ulp)."""
+    from clsurvey_torch.ops import preprocess as pp
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for b in sorted(sizes):
+        x = torch.randint(0, 256, (b, ALEX_PX, ALEX_PX, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        flip = torch.randint(0, 2, (b,), dtype=torch.uint8, device="cuda",
+                             generator=gen)
+        for mask in (flip, None):
+            _preprocess_agrees(pp.preprocess(x, MEAN, STD, mask),
+                               pp.normalize_flip_plain(x, MEAN, STD, mask),
+                               torch.float32, f"alexnet batch {b}")
+
+
+def alexnet_recogseq_cli(root: str, card: str) -> dict:
+    """A RecogSeq-shaped tree prepared by the port's ``recogseq.prepare``,
+    then ``alexnet`` finetuning on ``recogseq`` through the timing_mode CLI
+    with ``--test`` (timing_mode trains 4 tasks, whatever
+    ``--max_task_count`` says), the launch counters zeroed just before and
+    read just after: kernel A must launch, no pool kernel; one eval entry
+    on the card against the CPU at ``LOGITS_TOL``; A held at the run's
+    batch sizes. Returns the launches."""
+    from clsurvey_torch.data import recogseq
+    from clsurvey_torch.framework import main as cli_main
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.utils import config, io
+
+    os.environ["CLSURVEY_ROOT"] = root
+    config.set_config(None)
+    raw = os.path.join(root, "raw_recogseq")
+    t0 = time.perf_counter()
+    n_images = _recogseq_tree(raw)
+    t1 = time.perf_counter()
+    out_dir = recogseq.prepare(raw, config.load_config().ds_root_path)
+    log(f"recogseq tree: {sum(RECOGSEQ_CLASSES)} classes, {n_images} "
+        f"224-px images written in {t1 - t0:.2f} s, prepared in "
+        f"{time.perf_counter() - t1:.2f} s -> {out_dir}")
+    argv = ["alexnet", "--method_name", "finetuning", "--ds_name",
+            "recogseq", "--runmode", "timing_mode", "--max_task_count", "2",
+            "--test", "--device", "cuda", "--gridsearch_name", "timing_mode"]
+    log("alexnet: python -m clsurvey_torch.framework.main", " ".join(argv))
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    manager = cli_main.cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    sizes = set(_kernels.BATCHES["normalize_flip"])
+    _no_pool_launches(launches, "recogseq CLI")
+    n = manager.args.max_task_count
+    model = io.load(manager.best_model_path(n, create=False))
+    _finite_tree(model["params"], "recogseq CLI, last best model")
+    matrix = eval_matrix(manager)
+    log(json.dumps({"recogseq_cli": "alexnet finetuning, timing_mode",
+                    "seconds": wall, "tasks": n,
+                    "class_counts": manager.dataset.class_count_list(),
+                    "task_seconds": manager.extras["task_seconds"],
+                    "launches": launches, "batch_sizes": sorted(sizes),
+                    "eval_matrix": matrix, "card": card}))
+    check_eval_entry(manager, model, matrix)
+    _hold_preprocess_224(sizes)
+    log(f"kernel A agrees at 224 px at the RecogSeq run's batch sizes "
+        f"{sorted(sizes)}")
+    return launches
+
+
+def _tiny_tree(raw: str) -> None:
+    """A fake ``tiny-imagenet-200``: the 200 wnids of the port's copy of
+    the survey order, 5 train and 2 val 64-px JPEGs each."""
+    import numpy as np
+
+    from clsurvey_torch.data.tinyimagenet import SURVEY_ORDER_FILE
+
+    with open(SURVEY_ORDER_FILE) as f:
+        wnids = [line.strip() for line in f if line.strip()]
+    with open(os.path.join(raw, "wnids.txt"), "w") as f:
+        f.write("\n".join(sorted(wnids)))
+    rng = np.random.default_rng(6)
+    os.makedirs(os.path.join(raw, "val", "images"))
+    ann, jobs = [], []
+    for ci, wnid in enumerate(wnids):
+        d = os.path.join(raw, "train", wnid, "images")
+        os.makedirs(d)
+        base = rng.uniform(30, 220, 3)
+        for j in range(7):
+            img = np.clip(base + rng.normal(0, 20, (64, 64, 3)), 0,
+                          255).astype(np.uint8)
+            if j < 5:
+                jobs.append((os.path.join(d, f"{wnid}_{j}.JPEG"), img))
+            else:
+                fn = f"val_{ci * 2 + j - 5}.JPEG"
+                jobs.append((os.path.join(raw, "val", "images", fn), img))
+                ann.append(f"{fn}\t{wnid}\t0\t0\t0\t0")
+    _write_jpegs(jobs)
+    with open(os.path.join(raw, "val", "val_annotations.txt"), "w") as f:
+        f.write("\n".join(ann))
+
+
+def tiny_cli(root: str, card: str) -> tuple[dict, set]:
+    """A fake tiny-imagenet-200 tree prepared by the port's
+    ``tinyimagenet.prepare``, then small_VGG9_cl_128_128 finetuning on
+    ``tiny`` for 2 tasks, the counters zeroed just before and read just
+    after: A, B1 and B2 must launch, every pool launch on the vec route.
+    Returns (launches, the batch sizes the kernels saw)."""
+    from clsurvey_torch.data import tinyimagenet
+    from clsurvey_torch.framework import main as cli_main
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.utils import config
+
+    os.environ["CLSURVEY_ROOT"] = root
+    config.set_config(None)
+    raw = os.path.join(root, "tiny-imagenet-200")
+    os.makedirs(raw)
+    t0 = time.perf_counter()
+    _tiny_tree(raw)
+    t1 = time.perf_counter()
+    out_dir = tinyimagenet.prepare(raw, config.load_config().ds_root_path)
+    log(f"tiny tree: 200 wnids x 7 64-px images written in {t1 - t0:.2f} s, "
+        f"prepared in {time.perf_counter() - t1:.2f} s -> {out_dir}")
+    argv = ["small_VGG9_cl_128_128", "--method_name", "finetuning",
+            "--ds_name", "tiny", "--max_task_count", "2", "--num_epochs",
+            "2", "--batch_size", "200", "--lr_grid", "5e-3", "--device",
+            "cuda"]
+    log("tiny: python -m clsurvey_torch.framework.main", " ".join(argv))
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    manager = cli_main.cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = dict(_kernels.LAUNCHES), dict(_kernels.ROUTES)
+    sizes = set().union(*_kernels.BATCHES.values())
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"tiny CLI: kernel {name} never launched")
+    for name in ("pool_fwd", "pool_bwd"):
+        if routes[f"{name}_vec"] != launches[name]:
+            raise AssertionError(f"tiny CLI: {routes[f'{name}_scalar']} of "
+                                 f"{launches[name]} {name} launches took "
+                                 f"the scalar route")
+    log(json.dumps({"tiny_cli": "small_VGG9_cl_128_128 finetuning, 2 tasks",
+                    "seconds": wall,
+                    "classes": manager.dataset.class_count_list()[:2],
+                    "task_seconds": manager.extras["task_seconds"],
+                    "launches": launches, "routes": routes,
+                    "batch_sizes": sorted(sizes), "card": card}))
+    return launches, sizes
+
+
+def _gap(got, want) -> tuple[float, float]:
+    """(max |diff|, largest |want|) of two tensors, on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+class _Decisions:
+    """Stands in for ``torch`` or ``torch.nn.functional`` inside
+    ``methods/hat.py`` for one step: ``relu`` and ``max_pool2d`` record
+    their decisions on ``tape`` (which entries were positive, which entry
+    of each window was largest) or, with ``replay``, take them from it in
+    the same order; everything else is the module's own."""
+
+    def __init__(self, module, tape: list, replay: bool):
+        self._module, self._tape, self._replay = module, tape, replay
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+    def relu(self, x):
+        if self._replay:
+            return x * self._tape.pop(0).to(x.device, x.dtype)
+        self._tape.append((x > 0).cpu())
+        return self._module.relu(x)
+
+    def max_pool2d(self, x, kernel_size, stride):
+        if self._replay:
+            idx = self._tape.pop(0).to(x.device)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        y, idx = self._module.max_pool2d(x, kernel_size, stride,
+                                         return_indices=True)
+        self._tape.append(idx.cpu())
+        return y
+
+
+def check_alexnet_variants(card: str) -> dict:
+    """AlexNet's method variants at 224 px and full width, card against
+    CPU (kernel A on the card, its plain version on the CPU; the CPU's
+    convs are PyTorch's native ones, not oneDNN's, whose float32 weight
+    gradients lose up to 3e-3 of their largest entry to cancellation
+    against a float64 reference, ``tests/test_torch_port_alexnet.py``), on
+    16 random images: a HATAlexNet step's processed gradient (task 2,
+    mask_back from task 1's embeddings, the same dropout masks on both),
+    with and without mask_back, each leaf within ``STEP_REL_TOL`` of the
+    largest entry of the float64 gradient without mask_back: the card's
+    float32 step (the CLI's dtype) against the CPU's float64 step on the
+    card's ReLU and pool decisions (:class:`_Decisions`), and the card's
+    float64 step against the CPU's; a PathNetAlexNet
+    eval entry (M 20, N 3) within ``LOGITS_TOL``; EBLL's code term on
+    AlexNet's 9,216-wide conv features within ``DISTILL_REL_TOL``. Every
+    gap is logged."""
+    with torch.backends.mkldnn.flags(enabled=False):
+        return _alexnet_variants(card)
+
+
+def _alexnet_variants(card: str) -> dict:
+    """The body of :func:`check_alexnet_variants`."""
+    import numpy as np
+
+    from clsurvey_torch.methods import ebll, hat, pathnet
+    from clsurvey_torch.models import convert, heads
+    from clsurvey_torch.models.registry import ModelSpec, init_model_state
+    from clsurvey_torch.ops import preprocess as pp
+    from clsurvey_torch.utils import rng as rng_lib
+
+    spec = ModelSpec(name="alexnet", arch="alexnet",
+                     input_size=(ALEX_PX, ALEX_PX))
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.integers(0, 256, (16, ALEX_PX, ALEX_PX, 3),
+                                           dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 4, 16)).long()
+    out = {}
+
+    # HAT: task 2 of two, smax 800, c 2.5, s at an epoch's first step
+    smax, lamb = 800.0, 2.5
+    net_cpu = hat.make_hat_model(spec, 2)
+    net_cpu.reset_parameters(rng_lib.generator(8, 0))
+    params = {k: v.detach().clone() for k, v in net_cpu.named_parameters()}
+    for name in net_cpu.emb_names:  # task 1 holds part of every layer
+        params[name] = torch.from_numpy(rng.uniform(
+            -0.02, 0.03, tuple(params[name].shape)).astype(np.float32))
+    tree = {"params": convert.hat_params_to_jax(params),
+            "heads": {"kernel": rng.normal(0, 0.01, (2, 4096, 4)).astype(
+                np.float32), "bias": np.zeros((2, 4), np.float32)}}
+    drop = [torch.randint(0, 2, (16, d), dtype=torch.uint8,
+                          generator=rng_lib.generator(8, 1))
+            for d in net_cpu.drop_dims]
+    s = hat.anneal_s(smax, 0, 40)
+    nets = {}
+
+    def grads_of(dev, dtype, blocked, tape=None, replay=False):
+        """The processed gradient (leaf -> float64 CPU tensor); with a
+        ``tape``, ReLU and the pools record or replay their decisions."""
+        if (dev, dtype) not in nets:
+            net = hat.make_hat_model(spec, 2).to(dev)
+            net.dtype = dtype
+            p = {k: v.to(dev, dtype) for k, v in params.items()}
+            mask_pre = hat.compute_mask_pre(p, net.emb_names, 1, smax)
+            nets[dev, dtype] = hat.HATEngine(
+                net, spec, 1, [4, 4], MEAN, STD, smax, mask_pre,
+                hat.compute_mask_back(net, p, mask_pre), augment=False,
+                device=dev)
+        engine = nets[dev, dtype]
+        mask_back = engine.mask_back
+        engine.mask_back = mask_back if blocked else None
+        tr = hat.hat_from_host(tree, dev, False)
+        tr["params"] = {k: v.to(dtype).requires_grad_()
+                        for k, v in tr["params"].items()}
+        for v in tr["heads"].values():
+            v.requires_grad_()
+        saved = hat.torch, hat.F
+        if tape is not None:
+            hat.torch = _Decisions(torch, tape, replay)
+            hat.F = _Decisions(torch.nn.functional, tape, replay)
+        try:
+            g, _ = engine.grads(tr, images.to(dev), labels.to(dev), s, lamb,
+                                dropout_masks=[m.to(dev) for m in drop])
+        finally:
+            hat.torch, hat.F = saved
+            engine.mask_back = mask_back
+        return {**{k: v.double().cpu() for k, v in g["params"].items()},
+                **{f"heads.{k}": v.double().cpu()
+                   for k, v in g["heads"].items()}}
+
+    # The float32 card step (the CLI's dtype) records where its ReLUs and
+    # pools decided; the float64 CPU step replays those decisions, so the
+    # two differ in arithmetic only, and are held to STEP_REL_TOL. A
+    # near-tie that float32 and float64 break differently moves a whole
+    # input patch's term from one weight gradient entry to another (about
+    # 4e-3 of conv_0's largest entry at 224 px on an H100): the
+    # plain float64 step's distance, and how many decisions differ, are
+    # logged. The float64 card step is held to the plain float64 CPU step.
+    tapes, grads = {}, {}
+    for blocked in (True, False):
+        tapes[blocked] = []
+        grads["card32", blocked] = grads_of("cuda", torch.float32, blocked,
+                                            tapes[blocked])
+        grads["ref", blocked] = grads_of("cpu", torch.float64, blocked,
+                                         list(tapes[blocked]), replay=True)
+        own = []
+        grads["cpu64", blocked] = grads_of("cpu", torch.float64, blocked,
+                                           own)
+        grads["card64", blocked] = grads_of("cuda", torch.float64, blocked)
+    differ = [int((a != b).sum()) for a, b in zip(tapes[True], own)]
+    blocked_weights = sum(int((v == 0).sum()) for v in
+                          nets["cuda", torch.float32].mask_back.values())
+    # each leaf against the largest entry of its float64 gradient without
+    # mask_back, as the small_VGG9 HAT step check scales it
+    worst = {}
+    for got_of, want_of, held in (("card32", "ref", True),
+                                  ("card64", "cpu64", True),
+                                  ("card32", "cpu64", False)):
+        for blocked in (True, False):
+            key = (f"{got_of}_vs_{want_of}_"
+                   f"{'with_mask_back' if blocked else 'without'}")
+            worst[key] = ("", 0.0)
+            for k, want in grads[want_of, blocked].items():
+                top = float(grads[want_of, False][k].abs().max())
+                got = grads[got_of, blocked][k]
+                diff = float((got - want).abs().max())
+                if top and diff / top >= worst[key][1]:
+                    worst[key] = (k, diff / top)
+                if held:
+                    torch.testing.assert_close(
+                        got, want, rtol=0, atol=STEP_REL_TOL * top,
+                        msg=lambda m, k=k, key=key: f"HATAlexNet step, "
+                        f"{key}: {k}: {m}")
+    out["hat_step_worst_diff_of_largest"] = worst
+    out["hat_step_decisions_differing"] = differ
+    log(f"HATAlexNet step (task 2, batch 16, 224 px, {blocked_weights} "
+        f"weights blocked), each leaf's worst gap over its largest float64 "
+        f"entry without mask_back (held: card32 vs ref, the float64 CPU "
+        f"step on the card's ReLU and pool decisions, and card64 vs cpu64; "
+        f"tolerance {STEP_REL_TOL:g}): " + ", ".join(
+            f"{key} {leaf} {r:.3g}" for key, (leaf, r) in worst.items())
+        + f"; ReLU / pool decisions of the plain float64 CPU step that "
+        f"differ from the float32 card's, in forward order: {differ}")
+
+    # PathNet: M 20 modules a layer, a path of 3, one eval batch
+    net_cpu = pathnet.PathNetAlexNet(ALEX_PX, 20)
+    net_cpu.reset_parameters(rng_lib.generator(8, 2))
+    p_cpu = {k: v.detach() for k, v in net_cpu.named_parameters()}
+    bank = {"kernel": torch.from_numpy(rng.normal(
+        0, 0.05, (2, net_cpu.feature_dim, 4)).astype(np.float32)),
+        "bias": torch.zeros(2, 4)}
+    path = torch.from_numpy(rng.integers(0, 20, (5, 3))).long()
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        net = net_cpu if dev == "cpu" else pathnet.PathNetAlexNet(
+            ALEX_PX, 20).to(dev)
+        with torch.no_grad():
+            x = pp.preprocess(images.to(dev), MEAN, STD)
+            feats = torch.func.functional_call(
+                net, {k: v.to(dev) for k, v in p_cpu.items()},
+                (x, path.to(dev)))
+            logits[dev] = heads.forward(
+                {**{k: v.to(dev) for k, v in bank.items()},
+                 "class_counts": np.asarray([4, 4])}, feats, 0).cpu()
+    diff, top = _gap(logits["cuda"], logits["cpu"])
+    out["pathnet_logits_gap"] = [diff, top]
+    log(f"PathNetAlexNet eval entry (16 images, 224 px, M 20, N 3, kernels "
+        f"{net_cpu.ksizes}): card vs CPU logits max |diff| {diff:.3g} "
+        f"(largest {top:.3g}; tolerance {LOGITS_TOL:g} abs + rel)")
+    torch.testing.assert_close(logits["cuda"], logits["cpu"],
+                               rtol=LOGITS_TOL, atol=LOGITS_TOL)
+
+    # EBLL: the code term of one autoencoder (9,216 -> 100) between the
+    # model's conv features and a teacher's
+    model = init_model_state(spec, seed=9, max_tasks=2, classes_per_task=4)
+    teacher = {layer: {leaf: (v + rng.normal(
+        0, 0.05 * float(np.abs(v).max()) + 1e-4, v.shape)).astype(np.float32)
+        for leaf, v in leaves.items()}
+        for layer, leaves in model["params"].items()}
+    ae = ebll.init_autoencoder(rng_lib.generator(9, 1), 9216, 100)
+    terms, feats = {}, {}
+    for dev in ("cpu", "cuda"):
+        backbone = spec.make_backbone().to(dev)
+        with torch.no_grad():
+            x = pp.preprocess(images.to(dev), MEAN, STD)
+            cur = ebll.conv_feats(backbone, convert.params_from_jax(
+                model["params"], dev), x)
+            frz = ebll.conv_feats(backbone, convert.params_from_jax(
+                teacher, dev), x)
+            a = ebll.autoencoder_on(ae, dev)
+            terms[dev] = float(torch.nn.functional.mse_loss(
+                ebll.encode(a, cur), ebll.encode(a, frz)))
+            feats[dev] = cur.cpu()
+    fdiff, ftop = _gap(feats["cuda"], feats["cpu"])
+    out["ebll_code_term"] = terms
+    out["ebll_conv_feats_gap"] = [fdiff, ftop]
+    log(f"EBLL code term on AlexNet conv features (16 x 9216): card vs CPU "
+        f"{terms['cuda']:.7g} vs {terms['cpu']:.7g} (tolerance "
+        f"{DISTILL_REL_TOL:g} relative); conv features max |diff| "
+        f"{fdiff:.3g} of {ftop:.3g}")
+    if not terms["cpu"] > 0 or abs(terms["cuda"] - terms["cpu"]) > \
+            DISTILL_REL_TOL * terms["cpu"]:
+        raise AssertionError("EBLL's code term on AlexNet differs on the "
+                             "card from the CPU's")
+    log(json.dumps({"alexnet_variants": "224 px, card vs CPU", **out,
+                    "card": card}))
+    return out
+
+
+CONV_REL_TOL = 1e-4  # card float32 conv against float64, of its largest
+
+
+def check_conv_precision(card: str) -> dict:
+    """The port's float32 convs (``ops/conv.py``: cuDNN's forward and input
+    gradient, the weight gradient a cuBLAS GEMM; TF32 off): forward, input
+    and weight gradient of AlexNet's and small_VGG9's convs at batch 200
+    against float64 on the card (``utils/conv_precision.py``), each within
+    ``CONV_REL_TOL`` of the largest float64 entry (``python -m
+    clsurvey_torch.utils.conv_precision`` measures cuDNN's own route
+    beside it)."""
+    from clsurvey_torch.utils import conv_precision
+
+    convs = conv_precision.measure(("port",))
+    log(json.dumps({"conv_precision": "float32 vs float64, batch 200",
+                    **convs, "card": card}))
+    for name, row in convs["port"].items():
+        for part, rel in row.items():
+            if not rel <= CONV_REL_TOL:
+                raise AssertionError(
+                    f"{name} {part}: the port's float32 conv on the card is "
+                    f"{rel:.3g} of its largest entry off float64 "
+                    f"(tolerance {CONV_REL_TOL:g})")
+    return convs
+
+
+def phase_alexnet(card: str) -> dict:
+    """AlexNet at 224 px and the image-folder datasets: kernel A held and
+    timed at (200, 224, 224, 3); the port's float32 convs against float64;
+    the AlexNet Engine point in bf16 and float32; the RecogSeq and
+    Tiny-ImageNet CLI runs from trees prepared by the port; the HAT,
+    PathNet and EBLL variants card against CPU.
+    Returns {"rows": A's rows, "launches": {run: launches}, "sizes": the
+    batch sizes the tiny run's kernels saw}."""
+    parts, t0 = {}, time.perf_counter()
+
+    def done(part):
+        nonlocal t0
+        torch.cuda.synchronize()
+        parts[part], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    rows = check_preprocess_224(torch.Generator(device="cuda").manual_seed(4))
+    done("kernel_a")
+    check_conv_precision(card)
+    done("conv_precision")
+    launches = alexnet_protocol(card)
+    done("alexnet224")
+    with tempfile.TemporaryDirectory() as root:
+        launches["recogseq_cli"] = alexnet_recogseq_cli(root, card)
+    done("recogseq_cli")
+    with tempfile.TemporaryDirectory() as root:
+        launches["tiny_cli"], sizes = tiny_cli(root, card)
+    done("tiny_cli")
+    check_alexnet_variants(card)
+    done("variants")
+    log(json.dumps({"alexnet_parts_s": parts, "card": card}))
+    return {"rows": rows, "launches": launches, "sizes": sizes}
+
+
 def phase_protocol(card: str) -> None:
     """bench.py's workload through the port's Engine: small_VGG9 at 64 px,
     20k random uint8 rows, batch 200, lr 5e-3, flips on; best of three
@@ -1728,7 +2458,7 @@ def phase_protocol(card: str) -> None:
 
 
 PHASES = ("card", "kernels", "cli", "framework", "methods", "rehearsal",
-          "masks", "protocol")
+          "masks", "alexnet", "protocol")
 
 
 def main(argv=None) -> int:
@@ -1769,7 +2499,7 @@ def run(phases: list) -> int:
     timed("card", phase_card, card)
     # None: the phase did not run
     checks = launches = fw_launches = method_launches = None
-    reh_launches = mask_launches = None
+    reh_launches = mask_launches = alex = None
     seen = set()  # batch sizes the rehearsal and masks phases used
     if "kernels" in phases:
         checks = timed("kernels", phase_kernels)
@@ -1795,12 +2525,15 @@ def run(phases: list) -> int:
         with tempfile.TemporaryDirectory() as root:
             mask_launches, sizes = timed("masks", phase_masks, root, card)
         seen.update(sizes)
+    if "alexnet" in phases:
+        alex = timed("alexnet", phase_alexnet, card)
+        seen.update(alex["sizes"])
     held = set(checks["held_batches"]) if checks else set()
     late = sorted(seen - held - {PREPROCESS_SHAPE[0]})
     if late:  # a size the kernels phase did not hold: hold it now
         check_batches(torch.Generator(device="cuda").manual_seed(1), late)
-        log(f"kernels agree at the other batch sizes the rehearsal and "
-            f"masks phases used: {late}")
+        log(f"kernels agree at the other batch sizes the rehearsal, "
+            f"masks and alexnet phases used: {late}")
         if checks:
             checks["held_batches"] = sorted(held | set(late))
     if "protocol" in phases:
@@ -1817,6 +2550,8 @@ def run(phases: list) -> int:
         dtypes = {"normalize_flip": (torch.float32,),
                   "pool_fwd": (torch.float32, torch.bfloat16),
                   "pool_bwd": (torch.float32, torch.bfloat16)}
+        if alex is not None:  # A at AlexNet's shape, beside the others
+            checks["normalize_flip"]["rows"].extend(alex["rows"])
         log(card)
         log(json.dumps({"kernels": [
             {**_kernel_row(name, sources[name], replaces[name],
@@ -1830,6 +2565,8 @@ def run(phases: list) -> int:
                  m: n[name] for m, n in reh_launches.items()},
              "launches_masks": mask_launches and {
                  m: n[name] for m, n in mask_launches.items()},
+             "launches_alexnet": alex and {
+                 m: n[name] for m, n in alex["launches"].items()},
              "held_batches": checks["held_batches"]}
             for name in sources for dtype in dtypes[name]]}))
     if set(phases) >= set(PHASES):

@@ -1,5 +1,6 @@
 """Task-sequence dataset registry (counterpart of
-``clsurvey_tpu/data/registry.py``; only ``synthetic`` is registered).
+``clsurvey_tpu/data/registry.py``; ``synthetic``, ``tiny``, ``inat`` and
+``recogseq`` are registered).
 
 Mirrors the reference's registry API (ref:src/data/dataset.py:13-82:
 ``parse(ds_name)`` + ``CustomDataset`` ABC with ``task_count``,
@@ -88,17 +89,14 @@ def register_dataset(name: str, factory: Callable[..., TaskSequence]) -> None:
 
 def parse(ds_name: str, **kwargs) -> TaskSequence:
     """String -> dataset object (ref:src/data/dataset.py:13-40)."""
-    # late import registers the built-in; the image-folder datasets
-    # (tinyimagenet, inaturalist, recogseq) come with a later slice
-    from clsurvey_torch.data import synthetic  # noqa: F401
+    # late imports register the built-ins
+    from clsurvey_torch.data import (  # noqa: F401
+        inaturalist, recogseq, synthetic, tinyimagenet)
 
     for key, factory in _REGISTRY.items():
         if ds_name == key or ds_name.startswith(key):
             return factory(ds_name=ds_name, **kwargs)
-    raise NotImplementedError(
-        f"DATASET NOT IMPLEMENTED: {ds_name} (clsurvey_torch has the "
-        f"synthetic_* sequences so far; ROADMAP.md, queue 1, item 2: "
-        f"AlexNet and the datasets)")
+    raise NotImplementedError(f"DATASET NOT IMPLEMENTED: {ds_name}")
 
 
 def merge_tasks(seq: TaskSequence, tasks: Sequence[int]) -> TaskData:

@@ -98,7 +98,17 @@ def tree_zeros_like(a):
 
 
 def tree_to_device(tree, device):
-    return tree_map(lambda x: torch.as_tensor(x).to(device), tree)
+    """Array leaves -> tensors on ``device``, numpy arrays copied (a rule
+    may write its state in place; a loaded array may be read-only); a
+    Python int (a ring position or fill count the rules keep on the host)
+    stays an int."""
+    def leaf(x):
+        if isinstance(x, int):
+            return x
+        if isinstance(x, np.ndarray):
+            return torch.tensor(x, device=device)
+        return torch.as_tensor(x).to(device)
+    return tree_map(leaf, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -155,14 +165,16 @@ class EngineContext:
                                {"batch_stats": batch_stats}), batch_stats
 
     def draw_dropout_masks(self, batch_size: int, gen):
-        """One (B, d_j) uint8 keep-mask per trunk layer, p(keep) = 0.5,
+        """One (B, d) uint8 keep-mask per dropout layer, p(keep) = 0.5,
         drawn on the device from ``gen``; None for a model without
-        dropout."""
+        dropout. The widths are the backbone's ``drop_dims``: the trunk
+        layers' outputs for a VGG, the FC layers' inputs for AlexNet
+        (9,216 and 4,096 at 224 px)."""
         if not self.spec.uses_dropout:
             return None
         return [torch.randint(0, 2, (batch_size, int(d)), dtype=torch.uint8,
                               device=self.device, generator=gen)
-                for d in self.spec.classifier_dims]
+                for d in self.backbone.drop_dims]
 
     def task_logits(self, trainable, feats):
         return heads_lib.forward(self.bank(trainable), feats, self.task)
@@ -465,20 +477,21 @@ def _load_resume(ckpt_path: str, device, rule: UpdateRule | None = None):
     """(the epoch checkpoint's dict, its TrainState on ``device``). The
     JAX engine, where orbax is importable, keeps the trees in an Orbax
     directory and only a pointer to it in the pickle; the pointer is
-    followed as written, as the JAX engine follows it. Such a file holds
-    the method state in the JAX layout: the base rule's (its
-    hyperparameters) is the same in both packages, any other rule must
-    convert it through its own ``mstate_from_jax``, or the resume raises."""
+    followed as written, as the JAX engine follows it. Without orbax it
+    writes the trees into the pickle itself. Either way the method state is
+    in the JAX layout: the base rule's (its hyperparameters) is the same in
+    both packages, every other rule converts it through its own
+    ``mstate_from_jax``. A rule without one is refused, Orbax or pickle,
+    rather than handed a state it would mis-read."""
     ck = io.load(ckpt_path)
     rule = rule or UpdateRule()
-    if ck.get("orbax_state") and type(rule) is not UpdateRule and \
+    if type(rule) is not UpdateRule and \
             type(rule).mstate_from_jax is UpdateRule.mstate_from_jax:
         raise RuntimeError(
-            f"{ckpt_path} points at an Orbax resume directory "
-            f"({ck['orbax_state']}), written by clsurvey_tpu; clsurvey_torch "
-            f"does not convert {type(rule).__name__}'s method state from "
-            f"the JAX layout yet (ROADMAP.md, queue 3). Delete it to "
-            f"restart the task.")
+            f"{ckpt_path} is an epoch checkpoint whose method state "
+            f"{type(rule).__name__} has no conversion for (no "
+            f"mstate_from_jax of its own); clsurvey_torch refuses it rather "
+            f"than resume a mis-laid state. Delete it to restart the task.")
     trees = orbax_io.load(ck["orbax_state"]) if ck.get("orbax_state") \
         else ck
     state = TrainState(

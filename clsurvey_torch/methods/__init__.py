@@ -6,8 +6,8 @@ Every name the JAX package's ``parse`` knows is ported: the baselines
 regularisers ``EWC``, ``MAS`` and ``SI``, the distillation methods ``LWF``
 and ``EBLL``, IMM, whose mode is parsed from the name (``mean_IMM`` /
 ``mode_IMM``), the rehearsal methods ``GEM`` and ``ICARL``, and the mask
-methods ``packnet``, ``HAT`` and ``pathnet`` (on the VGG family: AlexNet
-model names raise, naming ROADMAP item 2)."""
+methods ``packnet``, ``HAT`` and ``pathnet``, on the VGG family and on
+AlexNet."""
 
 from __future__ import annotations
 

@@ -107,10 +107,12 @@ class UpdateRule:
         return None
 
     def mstate_to_jax(self, mstate: Any) -> Any:
-        """The method state as an epoch checkpoint holds it: the JAX
-        package's layout where a rule converts it (``mstate_from_jax`` is
-        the inverse), else the port's own."""
-        return mstate
+        """The method state as an epoch checkpoint holds it, in the JAX
+        package's layout: the state with its ``export_aux`` parts (already
+        in that layout) in place of the port's; a rule whose state holds
+        more than that converts it itself. ``mstate_from_jax`` is the
+        inverse."""
+        return {**mstate, **(self.export_aux(mstate) or {})}
 
     def mstate_from_jax(self, tree: Any) -> Any:
         """An epoch checkpoint's host method state -> the port's layout,

@@ -23,9 +23,11 @@ features); the student's conv features are a second, eval-mode pass, as in
 the JAX package, because a batch-norm model's train-mode pass normalizes
 with other statistics. An autoencoder is a dict ``{'enc' | 'dec':
 {'kernel': (in, out), 'bias'}}``, on disk as numpy in exactly that layout,
-so either package loads the other's encoders. AlexNet, the architecture
-the reference's own EBLL runs on, is not ported yet: its model name raises
-in ``models/registry.py``."""
+so either package loads the other's encoders. On AlexNet, the
+architecture the reference's own EBLL runs on, the autoencoder runs on the
+flattened conv output (9,216 wide at 224 px): ``conv_feats`` and
+``trunk_feats`` call the backbone's ``part="features"`` / ``part="trunk"``,
+which both backbones have."""
 
 from __future__ import annotations
 
@@ -190,6 +192,10 @@ class EBLLRule(LwFRule):
         state["encoders"] = [autoencoder_on(e, ctx.device)
                              for e in (encoders or [])]
         return state
+
+    # the autoencoders have one layout in both packages ({'enc' | 'dec':
+    # {'kernel': (in, out), 'bias'}}), so only the teacher converts
+    # (LwFRule's mstate_to_jax / mstate_from_jax)
 
     def extra_loss(self, ctx, trainable, feats, batch, mstate,
                    batch_stats=None, gen=None):

@@ -2,8 +2,9 @@
 (ref:src/methods/HAT/{approaches/hat.py, HAT_utils.py, networks/vgg_hat.py},
 wrapper ref:src/methods/method.py:600-627).
 
-Counterpart of ``clsurvey_tpu/methods/hat.py`` for the VGG family (the
-AlexNet variant waits for ROADMAP.md queue 1, item 2). Per-layer task
+Counterpart of ``clsurvey_tpu/methods/hat.py``: :class:`HATVGG` for the VGG
+family and :class:`HATAlexNet` for an AlexNet model name
+(:func:`make_hat_model`). Per-layer task
 embeddings ``e_t`` gate every conv and FC output with ``m = sigmoid(s *
 e_t)``; ``s`` anneals from ``1/smax`` to ``smax`` across each epoch's
 batches; the loss adds the sparsity term ``c * sum(m * (1 - m_prev)) /
@@ -17,7 +18,9 @@ divergence containment), not the engine's x0.1-at-5 schedule.
 On the card:
 
 - every ``'M'`` of :class:`HATVGG` is ``ops.pool.pool2x2`` (kernels B1 and
-  B2); kernel A preprocesses, with flips in training and without in eval;
+  B2); :class:`HATAlexNet` pools with ``F.max_pool2d(3, 2)``, as the JAX
+  package pools it with flax's ``max_pool``; kernel A preprocesses, with
+  flips in training and without in eval;
 - a step is a Python function over the weights, as in ``engine/train.py``:
   the gradient processing (weight decay, cosh compensation, per-leaf norm
   clipping, ``mask_back``, the head select), momentum, update and clamp are
@@ -59,10 +62,13 @@ from clsurvey_torch.engine.train import (
 from clsurvey_torch.methods import common
 from clsurvey_torch.methods.base import Category, Method
 from clsurvey_torch.models import heads as heads_lib
-from clsurvey_torch.models.backbones import DROPOUT_RATE, VGG_CFG, _cast
+from clsurvey_torch.models.backbones import (
+    ALEX_CONVS, ALEX_FC, ALEX_POOL_AFTER, DROPOUT_RATE, VGG_CFG, _cast,
+    alexnet_smid)
 from clsurvey_torch.models.convert import (
     hat_params_from_jax, hat_params_to_jax)
 from clsurvey_torch.ops import preprocess as pp
+from clsurvey_torch.ops.conv import conv2d
 from clsurvey_torch.ops.pool import pool2x2
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, rng as rng_lib
@@ -73,7 +79,44 @@ THRES_EMB = 6.0
 CLIPGRAD = 10000.0
 
 
-class HATVGG(nn.Module):
+class _Gated(nn.Module):
+    """What the gated backbones share: the embedding names in gate order,
+    the gate, and the JAX package's init. A subclass sets ``n_conv``,
+    ``fc_dims``, ``cfg_name`` and the layers ``conv_<i>`` / ``emb_conv_<i>``
+    / ``fc_<j>`` / ``emb_fc_<j>``."""
+
+    @property
+    def emb_names(self) -> list[str]:
+        """Gate order: conv layers, then the trunk."""
+        return ([f"emb_conv_{i}" for i in range(self.n_conv)]
+                + [f"emb_fc_{j}" for j in range(len(self.fc_dims))])
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """The JAX package's init: kaiming-normal (fan_out) convs, N(0, 0.01)
+        linears (kaiming for tiny_CNN), zero biases, and embeddings from
+        uniform(0, 2), so every gate starts open (ref:vgg_hat.py:75-80)."""
+        with torch.no_grad():
+            for i in range(self.n_conv):
+                conv = getattr(self, f"conv_{i}")
+                fan_out = conv.out_channels * conv.kernel_size[0] \
+                    * conv.kernel_size[1]
+                conv.weight.normal_(0.0, (2.0 / fan_out) ** 0.5,
+                                    generator=generator)
+                conv.bias.zero_()
+            for j, d in enumerate(self.fc_dims):
+                fc = getattr(self, f"fc_{j}")
+                std = (2.0 / d) ** 0.5 if self.cfg_name == "tiny_CNN" else 0.01
+                fc.weight.normal_(0.0, std, generator=generator)
+                fc.bias.zero_()
+            for name in self.emb_names:
+                getattr(self, name).uniform_(0.0, 2.0, generator=generator)
+
+    def _gate(self, name: str, task: int, s: float, ones: bool):
+        gate = torch.sigmoid(s * getattr(self, name)[task])
+        return torch.ones_like(gate) if ones else gate
+
+
+class HATVGG(_Gated):
     """VGG backbone with per-layer task-embedding gates. ``forward``
     returns (float32 features, gates): the gate vectors of the requested
     task, conv layers first, then the trunk's (ref:vgg_hat.py:90-127).
@@ -108,35 +151,9 @@ class HATVGG(nn.Module):
             setattr(self, f"emb_fc_{j}", nn.Parameter(torch.empty(n_tasks, d)))
             fan_in = d
         self.feature_dim = self.fc_dims[-1]
+        # dropout follows each trunk layer: masks of the layers' widths
+        self.drop_dims = self.fc_dims
         self.reset_parameters()
-
-    @property
-    def emb_names(self) -> list[str]:
-        """Gate order: conv layers, then the trunk."""
-        return ([f"emb_conv_{i}" for i in range(self.n_conv)]
-                + [f"emb_fc_{j}" for j in range(len(self.fc_dims))])
-
-    def reset_parameters(self, generator: torch.Generator | None = None):
-        """The JAX package's init: kaiming-normal (fan_out) convs, N(0, 0.01)
-        linears (kaiming for tiny_CNN), zero biases, and embeddings from
-        uniform(0, 2), so every gate starts open (ref:vgg_hat.py:75-80)."""
-        with torch.no_grad():
-            for i in range(self.n_conv):
-                conv = getattr(self, f"conv_{i}")
-                std = (2.0 / (conv.out_channels * 9)) ** 0.5
-                conv.weight.normal_(0.0, std, generator=generator)
-                conv.bias.zero_()
-            for j, d in enumerate(self.fc_dims):
-                fc = getattr(self, f"fc_{j}")
-                std = (2.0 / d) ** 0.5 if self.cfg_name == "tiny_CNN" else 0.01
-                fc.weight.normal_(0.0, std, generator=generator)
-                fc.bias.zero_()
-            for name in self.emb_names:
-                getattr(self, name).uniform_(0.0, 2.0, generator=generator)
-
-    def _gate(self, name: str, task: int, s: float, ones: bool):
-        gate = torch.sigmoid(s * getattr(self, name)[task])
-        return torch.ones_like(gate) if ones else gate
 
     def forward(self, x: torch.Tensor, task: int, s: float,
                 train: bool = False, ones_gates: bool = False,
@@ -151,8 +168,8 @@ class HATVGG(nn.Module):
                             ).permute(0, 3, 1, 2)
                 continue
             conv = getattr(self, f"conv_{i}")
-            x = torch.relu(F.conv2d(_cast(x, dt), _cast(conv.weight, dt),
-                                    _cast(conv.bias, dt), padding=1))
+            x = torch.relu(conv2d(_cast(x, dt), _cast(conv.weight, dt),
+                                  _cast(conv.bias, dt), padding=1))
             gate = self._gate(f"emb_conv_{i}", task, s, ones_gates)
             gates.append(gate)
             x = x * gate.view(1, -1, 1, 1).to(x.dtype)
@@ -174,6 +191,83 @@ class HATVGG(nn.Module):
             gates.append(gate)
             x = x * gate.to(x.dtype)
         return x.to(torch.float32), gates
+
+
+class HATAlexNet(_Gated):
+    """AlexNet with per-layer task-embedding gates (ref:src/methods/HAT/
+    networks/alexnet_hat.py; the JAX package's ``HATAlexNet``). Per conv:
+    conv, ReLU, the 3x3/2 pool after convs 0, 1 and 4, then the gate; per
+    FC layer: dropout, FC, ReLU, gate (AlexNet's dropout-first order), so
+    the keep-masks have the FC layers' input widths (``drop_dims``).
+    ``smid_hw`` (``alexnet_smid``) drives ``compute_mask_back``'s NHWC
+    tiling of ``fc_0``; the names follow HATVGG's scheme, so the mask
+    functions and ``models/convert.py``'s HAT layout apply unchanged."""
+
+    def __init__(self, n_tasks: int, input_size: Sequence[int],
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg_name = "alexnet"
+        self.dtype = dtype
+        self.dropout = True
+        cin = 3
+        for i, (f, k, st, p) in enumerate(ALEX_CONVS):
+            setattr(self, f"conv_{i}", nn.Conv2d(cin, f, k, stride=st,
+                                                 padding=p))
+            setattr(self, f"emb_conv_{i}",
+                    nn.Parameter(torch.empty(n_tasks, f)))
+            cin = f
+        self.n_conv = len(ALEX_CONVS)
+        self.smid_hw = tuple(alexnet_smid(int(n)) for n in input_size)
+        flat = cin * self.smid_hw[0] * self.smid_hw[1]
+        self.fc_dims = (ALEX_FC, ALEX_FC)
+        for j, fan_in in enumerate((flat, ALEX_FC)):
+            setattr(self, f"fc_{j}", nn.Linear(fan_in, ALEX_FC))
+            setattr(self, f"emb_fc_{j}",
+                    nn.Parameter(torch.empty(n_tasks, ALEX_FC)))
+        self.feature_dim = ALEX_FC
+        self.drop_dims = (flat, ALEX_FC)
+        self.reset_parameters()
+
+    def forward(self, x: torch.Tensor, task: int, s: float,
+                train: bool = False, ones_gates: bool = False,
+                dropout_masks=None):
+        dt = self.dtype
+        gates = []
+        x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+        for i, (_, _, st, p) in enumerate(ALEX_CONVS):
+            conv = getattr(self, f"conv_{i}")
+            x = torch.relu(conv2d(_cast(x, dt), _cast(conv.weight, dt),
+                                  _cast(conv.bias, dt), stride=st,
+                                  padding=p))
+            if i in ALEX_POOL_AFTER:
+                x = F.max_pool2d(x, 3, 2)
+            gate = self._gate(f"emb_conv_{i}", task, s, ones_gates)
+            gates.append(gate)
+            x = x * gate.view(1, -1, 1, 1).to(x.dtype)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+        if train and (dropout_masks is None or len(dropout_masks) != 2):
+            raise ValueError("a train-mode forward of HAT's AlexNet needs "
+                             "one keep-mask per FC layer")
+        for j in range(2):
+            if train:
+                x = x * (dropout_masks[j].to(x.dtype)
+                         * (1.0 / (1.0 - DROPOUT_RATE)))
+            fc = getattr(self, f"fc_{j}")
+            x = torch.relu(F.linear(_cast(x, dt), _cast(fc.weight, dt),
+                                    _cast(fc.bias, dt)))
+            gate = self._gate(f"emb_fc_{j}", task, s, ones_gates)
+            gates.append(gate)
+            x = x * gate.to(x.dtype)
+        return x.to(torch.float32), gates
+
+
+def make_hat_model(spec, n_tasks: int) -> HATVGG | HATAlexNet:
+    """The gated backbone of ``spec``: HATAlexNet for AlexNet, else
+    HATVGG."""
+    if spec.arch == "alexnet":
+        return HATAlexNet(n_tasks, spec.input_size, dtype=spec.compute_dtype)
+    return HATVGG(spec.arch, spec.classifier_dims, n_tasks, spec.input_size,
+                  dropout=spec.dropout, dtype=spec.compute_dtype)
 
 
 def compute_mask_pre(params: dict, emb_names: list, task: int,
@@ -315,7 +409,7 @@ class HATEngine:
                 if self.augment else None)
         drop = ([torch.randint(0, 2, (batch_size, d), dtype=torch.uint8,
                                device=self.device, generator=gen)
-                 for d in self.net.fc_dims] if self.spec.uses_dropout
+                 for d in self.net.drop_dims] if self.spec.uses_dropout
                 else None)
         return flip, drop
 
@@ -590,10 +684,7 @@ class HAT(Method):
     momentum: float = 0.9
 
     def _net(self, manager) -> HATVGG:
-        spec = manager.model_spec
-        return HATVGG(spec.arch, spec.classifier_dims, manager.max_tasks,
-                      spec.input_size, dropout=spec.dropout,
-                      dtype=spec.compute_dtype)
+        return make_hat_model(manager.model_spec, manager.max_tasks)
 
     def _load_or_init(self, manager) -> dict:
         """The previous task's HAT model, or at task 1 a fresh one: weights

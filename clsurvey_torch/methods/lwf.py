@@ -25,7 +25,9 @@ from clsurvey_torch.methods import common
 from clsurvey_torch.methods.base import Category, Method, UpdateRule
 from clsurvey_torch.methods.finetune import finetune_grid_train
 from clsurvey_torch.models import heads as heads_lib
-from clsurvey_torch.models.convert import batch_stats_from_jax, params_from_jax
+from clsurvey_torch.models.convert import (
+    batch_stats_from_jax, batch_stats_to_jax, params_from_jax, params_to_jax,
+    port_layout)
 from clsurvey_torch.ops.distill import lwf_distill_multi
 from clsurvey_torch.utils import io
 
@@ -53,6 +55,24 @@ class LwFRule(UpdateRule):
             "bias": head("bias"),
         }
         return state
+
+    def mstate_to_jax(self, mstate):
+        """The teacher's weights and statistics in the JAX layout, as the
+        JAX rule's ``init_state`` builds them."""
+        t = mstate["teacher"]
+        return {**mstate, "teacher": {
+            **t, "params": params_to_jax(t["params"]),
+            "batch_stats": batch_stats_to_jax(t["batch_stats"])}}
+
+    def mstate_from_jax(self, tree):
+        # epoch files of earlier port versions hold the teacher in the
+        # port's own flat layout: passed through as they are
+        t = tree["teacher"]
+        if port_layout(t["params"]):
+            return tree
+        return {**tree, "teacher": {
+            **t, "params": params_from_jax(t["params"]),
+            "batch_stats": batch_stats_from_jax(t.get("batch_stats"))}}
 
     # hyperparam key holding the distillation strength (EBLL reuses this
     # whole term under its own key)

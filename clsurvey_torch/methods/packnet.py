@@ -35,7 +35,8 @@ from dataclasses import dataclass, field
 from clsurvey_torch.framework.evaluate import default_inference_eval
 from clsurvey_torch.methods import common
 from clsurvey_torch.methods.base import Category, Method, UpdateRule
-from clsurvey_torch.models.convert import params_from_jax, params_to_jax
+from clsurvey_torch.models.convert import (
+    params_from_jax, params_to_jax, port_layout)
 from clsurvey_torch.ops import masks as masks_lib
 from clsurvey_torch.utils import io
 from clsurvey_torch.utils.paths import BEST_MODEL_FILENAME
@@ -74,6 +75,13 @@ class PackNetRule(UpdateRule):
 
     def export_aux(self, mstate):
         return {"masks": params_to_jax(mstate["masks"])}
+
+    def mstate_from_jax(self, tree):
+        # the uint8 masks keep their dtype and 0-d sentinels; epoch files of
+        # earlier port versions hold the port's flat layout, passed through
+        if port_layout(tree["masks"]):
+            return tree
+        return {**tree, "masks": params_from_jax(tree["masks"], dtype=None)}
 
 
 def load_with_masks(path_or_model, device) -> tuple[dict, dict]:

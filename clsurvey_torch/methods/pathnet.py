@@ -2,9 +2,10 @@
 (ref:src/methods/HAT/approaches/pathnet.py, networks/vgg_pathnet.py,
 wrapper ref:src/methods/method.py:559-597; exposed as ``pathnet``).
 
-Counterpart of ``clsurvey_tpu/methods/pathnet.py`` for the VGG family (the
-AlexNet variant waits for ROADMAP.md queue 1, item 2). Each conv / FC layer
-is split into M modules of width ``out // M``; a path picks N modules per
+Counterpart of ``clsurvey_tpu/methods/pathnet.py``: :class:`PathNetVGG` for
+the VGG family and, on an AlexNet model name, :class:`PathNetAlexNet`, the
+reference's 5-layer AlexNet-budget PathNet. Each VGG conv / FC layer is
+split into M modules of width ``out // M``; a path picks N modules per
 layer and sums their outputs. A binary tournament evolves the path: each
 candidate trains for a few epochs, the winner survives, and the loser
 becomes a mutation of it (per gene, probability 1/(N L), ``+=
@@ -61,6 +62,7 @@ from clsurvey_torch.models.backbones import VGG_CFG, _cast
 from clsurvey_torch.models.convert import (
     pathnet_params_from_jax, pathnet_params_to_jax)
 from clsurvey_torch.ops import preprocess as pp
+from clsurvey_torch.ops.conv import conv2d
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, rng as rng_lib
 from clsurvey_torch.utils.paths import BEST_MODEL_FILENAME
@@ -128,7 +130,10 @@ class PathNetVGG(nn.Module):
                 bank.weight.normal_(0.0, std, generator=generator)
                 bank.bias.zero_()
 
-    def forward(self, x: torch.Tensor, path: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, path: torch.Tensor,
+                train: bool = False, dropout_masks=None) -> torch.Tensor:
+        """The VGG PathNet has no dropout: ``train`` and ``dropout_masks``
+        are accepted for :class:`PathNetAlexNet`'s interface and unused."""
         x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
         layer = 0
         for ci, v in enumerate(self.cfg):
@@ -147,28 +152,127 @@ class PathNetVGG(nn.Module):
         return x.to(torch.float32)
 
 
-def module_conv(x, weight, bias, sel, pool: bool, dtype=torch.float32):
-    """The modules ``sel`` of a conv bank as one 3x3 SAME conv (NCHW in and
-    out), then ReLU[, 2x2 max-pool] and the sum over the N channel groups
+def _drop(x, keep, rate: float):
+    """Inverted dropout under a handed-in keep-mask, as the JAX package's
+    ``where(keep, x / (1 - rate), 0)``."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def module_conv(x, weight, bias, sel, pool: bool, dtype=torch.float32,
+                padding: int = 1, keep=None, rate: float = 0.0):
+    """The modules ``sel`` of a conv bank as one conv (NCHW in and out; 3x3
+    SAME for the VGG, unpadded for AlexNet's), then ReLU, dropout under
+    ``keep`` (NHWC, over the stacked channels, as the JAX package draws
+    it)[, 2x2 max-pool] and the sum over the N channel groups
     (ref:vgg_pathnet.py forward: ``sum_j maxpool(relu(conv_j(x)))``)."""
     n, out_w = sel.shape[0], weight.shape[1]
     k = weight.index_select(0, sel).reshape(n * out_w, *weight.shape[2:])
     b = bias.index_select(0, sel).reshape(n * out_w)
-    x = torch.relu(F.conv2d(_cast(x, dtype), _cast(k, dtype), _cast(b, dtype),
-                            padding=1))
+    x = torch.relu(conv2d(_cast(x, dtype), _cast(k, dtype), _cast(b, dtype),
+                          padding=padding))
+    if keep is not None:
+        x = _drop(x, keep.permute(0, 3, 1, 2), rate)
     if pool:
         x = F.max_pool2d(x, 2, 2)
     return x.unflatten(1, (n, out_w)).sum(1)
 
 
-def module_dense(x, weight, bias, sel, dtype=torch.float32):
-    """The modules ``sel`` of a dense bank as one linear layer, ReLU, and
-    the sum over the N groups."""
+def module_dense(x, weight, bias, sel, dtype=torch.float32, keep=None,
+                 rate: float = 0.0):
+    """The modules ``sel`` of a dense bank as one linear layer, ReLU,
+    dropout under ``keep``, and the sum over the N groups."""
     n, out_w = sel.shape[0], weight.shape[1]
     k = weight.index_select(0, sel).reshape(n * out_w, weight.shape[2])
     b = bias.index_select(0, sel).reshape(n * out_w)
     x = torch.relu(F.linear(_cast(x, dtype), _cast(k, dtype), _cast(b, dtype)))
+    if keep is not None:
+        x = _drop(x, keep, rate)
     return x.unflatten(1, (n, out_w)).sum(1)
+
+
+class PathNetAlexNet(nn.Module):
+    """The reference's standalone 5-layer AlexNet-budget PathNet
+    (ref:src/methods/HAT/networks/alexnet_pathnet.py; the JAX package's
+    ``PathNetAlexNet``): 3 convs and 2 FC layers of M modules each, module
+    widths ``int(0.258 * base)`` (16, 33, 66; 528, 528), unpadded kernels
+    of ``px // 8``, ``px // 10`` and 2, a 2x2 max-pool after every conv,
+    dropout 0.2, 0.2 and 0.5 on the convs' module outputs (before the pool)
+    and 0.5 on the FC layers'. The keep-masks are handed in, one per layer:
+    ``(B, H, W, N * width)`` NHWC for a conv, ``(B, N * width)`` for an FC
+    layer (:meth:`drop_shapes`)."""
+
+    EXPAND = 0.258
+    CONV_DROP = (0.2, 0.2, 0.5)
+    FC_DROP = 0.5
+
+    def __init__(self, input_px: int, M: int, dtype=torch.float32):
+        super().__init__()
+        e, px = self.EXPAND, int(input_px)
+        self.M = int(M)
+        self.dtype = dtype
+        widths = [int(e * 64), int(e * 128), int(e * 256)]
+        self.ksizes = (px // 8, px // 10, 2)
+        self.conv_hw = []  # each conv's output side, before its pool
+        cin, h = 3, px
+        for i, (out_w, k) in enumerate(zip(widths, self.ksizes)):
+            setattr(self, f"conv_{i}", _ModuleBank(self.M, out_w, cin, k))
+            h = h - k + 1
+            self.conv_hw.append(h)
+            cin, h = out_w, h // 2
+        self.n_convs = 3
+        fan_in = cin * h * h
+        self.fc_widths = [int(e * 2048), int(e * 2048)]
+        for j, out_w in enumerate(self.fc_widths):
+            setattr(self, f"fc_{j}", _ModuleBank(self.M, out_w, fan_in, None))
+            fan_in = out_w
+        self.n_layers = 5
+        self.feature_dim = self.fc_widths[-1]
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Each module as a layer of its own: kaiming-normal (fan_out)
+        convs, N(0, 0.01) linears, zero biases."""
+        with torch.no_grad():
+            for name, bank in self.named_children():
+                if name.startswith("conv_"):
+                    out_w, k = bank.weight.shape[1], bank.weight.shape[-1]
+                    std = (2.0 / (out_w * k * k)) ** 0.5
+                else:
+                    std = 0.01
+                bank.weight.normal_(0.0, std, generator=generator)
+                bank.bias.zero_()
+
+    def drop_shapes(self, batch_size: int, n: int) -> list:
+        """(shape, rate) of each layer's keep-mask for a path of ``n``
+        modules a layer."""
+        out = []
+        for i, hw in enumerate(self.conv_hw):
+            width = getattr(self, f"conv_{i}").weight.shape[1]
+            out.append(((batch_size, hw, hw, n * width), self.CONV_DROP[i]))
+        for width in self.fc_widths:
+            out.append(((batch_size, n * width), self.FC_DROP))
+        return out
+
+    def forward(self, x: torch.Tensor, path: torch.Tensor,
+                train: bool = False, dropout_masks=None) -> torch.Tensor:
+        if train and (dropout_masks is None or len(dropout_masks) != 5):
+            raise ValueError("a train-mode forward of the AlexNet PathNet "
+                             "needs one keep-mask per layer")
+        keep = dropout_masks if train else [None] * 5
+        rates = self.CONV_DROP + (self.FC_DROP,) * 2
+        x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+        for i in range(self.n_convs):
+            bank = getattr(self, f"conv_{i}")
+            x = module_conv(x, bank.weight, bank.bias, path[i], True,
+                            self.dtype, padding=0, keep=keep[i],
+                            rate=rates[i])
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+        for j in range(len(self.fc_widths)):
+            bank = getattr(self, f"fc_{j}")
+            x = module_dense(x, bank.weight, bank.bias, path[3 + j],
+                             self.dtype, keep=keep[3 + j], rate=rates[3 + j])
+        return x.to(torch.float32)
 
 
 def layer_index(name: str, n_convs: int) -> int:
@@ -238,14 +342,25 @@ class PathNetFns:
         return torch.randint(0, 2, (batch_size,), dtype=torch.uint8,
                              device=self.device, generator=gen)
 
+    def draw_dropout(self, gen, batch_size: int, n: int):
+        """One step's keep-masks of the AlexNet PathNet (p(keep) = 1 -
+        rate, per element), from the epoch's device generator; None for
+        the VGG PathNet, which has no dropout."""
+        if not isinstance(self.net, PathNetAlexNet):
+            return None
+        return [torch.rand(shape, device=self.device, generator=gen) >= rate
+                for shape, rate in self.net.drop_shapes(batch_size, n)]
+
     def train_step(self, trainable, momentum, x_u8, y, path, keep, lr,
-                   flip=None):
+                   flip=None, dropout_masks=None):
         """One SGD step (momentum 0.9) with the gradient hard-selected by
         ``keep`` (name -> bool gate) and only the current head trained.
         Returns the new trainable; the momentum is updated in place."""
         x = pp.preprocess(x_u8, self.mean, self.std, flip,
                           dtype=self.net.dtype)
-        feats = functional_call(self.net, trainable["params"], (x, path))
+        feats = functional_call(self.net, trainable["params"], (x, path),
+                                {"train": True,
+                                 "dropout_masks": dropout_masks})
         loss = F.cross_entropy(heads_lib.forward(self.bank(trainable),
                                                  feats, self.task), y)
         names = list(trainable["params"])
@@ -281,7 +396,8 @@ class PathNetFns:
             trainable = self.train_step(
                 trainable, momentum, images.index_select(0, idx),
                 labels.index_select(0, idx), path, keep, lr,
-                self.draw(gen, bsz))
+                self.draw(gen, bsz),
+                self.draw_dropout(gen, bsz, int(path.shape[1])))
         return trainable, momentum
 
     def eval_acc(self, trainable, images, labels, path,
@@ -336,8 +452,12 @@ class PathNet(Method):
         return int(value) + 1
 
     # ---- model plumbing -----------------------------------------------------
-    def _net(self, manager) -> PathNetVGG:
+    def _net(self, manager) -> PathNetVGG | PathNetAlexNet:
         spec = manager.model_spec
+        if spec.arch == "alexnet":
+            return PathNetAlexNet(int(spec.input_size[0]),
+                                  M=int(self.static_hyperparams["M"]),
+                                  dtype=spec.compute_dtype)
         return PathNetVGG(spec.arch, spec.classifier_dims, spec.input_size,
                           M=int(self.static_hyperparams["M"]),
                           dtype=spec.compute_dtype)

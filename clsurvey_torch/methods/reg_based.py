@@ -43,7 +43,7 @@ from clsurvey_torch.methods import common
 from clsurvey_torch.methods.base import Category, Method, UpdateRule
 from clsurvey_torch.methods.finetune import finetune_grid_train
 from clsurvey_torch.models.convert import (
-    batch_stats_from_jax, params_from_jax, params_to_jax)
+    batch_stats_from_jax, params_from_jax, params_to_jax, port_layout)
 from clsurvey_torch.ops import importance as imp_lib
 from clsurvey_torch.utils import io, timing
 
@@ -87,13 +87,10 @@ class QuadRegRule(UpdateRule):
     def export_aux(self, mstate):
         return {k: params_to_jax(mstate[k]) for k in self.PARAM_TREES}
 
-    def mstate_to_jax(self, mstate):
-        return {**mstate, **self.export_aux(mstate)}
-
     def mstate_from_jax(self, tree):
         # epoch files of earlier port versions hold the port's own flat
         # layout ("features.conv_0.weight"): passed through as they are
-        return {**tree, **{k: tree[k] if any("." in n for n in tree[k])
+        return {**tree, **{k: tree[k] if port_layout(tree[k])
                            else params_from_jax(tree[k])
                            for k in self.PARAM_TREES}}
 

@@ -107,10 +107,11 @@ def memory_on(mem: dict, device) -> dict:
 
 
 def memory_to_host(mem: dict) -> dict:
-    """The on-disk form: numpy copies, ``mem_cnt`` an int32 scalar."""
+    """The on-disk form: numpy copies, ``mem_cnt`` a 0-d int32 array (the
+    JAX package's)."""
     return {**{k: _host(mem[k]) for k in ("mem_images", "mem_labels",
                                           "mem_count")},
-            "mem_cnt": np.int32(int(mem["mem_cnt"]))}
+            "mem_cnt": np.array(int(mem["mem_cnt"]), np.int32)}
 
 
 def ring_buffer_update(mem: dict, task: int, x_u8: torch.Tensor,
@@ -219,6 +220,12 @@ class _MemoryRule(UpdateRule):
 
     def export_aux(self, mstate):
         return {"memory": memory_to_host(mstate["memory"])}
+
+    def mstate_from_jax(self, tree):
+        # a JAX-written file and one of an earlier port version differ only
+        # in the ring position's type (a 0-d array there, an int here)
+        mem = tree["memory"]
+        return {**tree, "memory": {**mem, "mem_cnt": int(mem["mem_cnt"])}}
 
 
 # ---------------------------------------------------------------------------
@@ -387,10 +394,11 @@ def exemplars_on(ex: dict, device) -> dict:
 
 
 def exemplars_to_host(ex: dict) -> dict:
-    """The on-disk form: numpy copies, ``count`` an int32 scalar."""
+    """The on-disk form: numpy copies, ``count`` a 0-d int32 array (the
+    JAX package's)."""
     return {**{k: _host(ex[k])
                for k in ("images", "targets", "labels", "task_ids")},
-            "count": np.int32(int(ex["count"]))}
+            "count": np.array(int(ex["count"]), np.int32)}
 
 
 class ICarlRule(UpdateRule):
@@ -448,6 +456,10 @@ class ICarlRule(UpdateRule):
 
     def export_aux(self, mstate):
         return {"exemplars": exemplars_to_host(mstate["exemplars"])}
+
+    def mstate_from_jax(self, tree):
+        ex = tree["exemplars"]
+        return {**tree, "exemplars": {**ex, "count": int(ex["count"])}}
 
 
 # ---------------------------------------------------------------------------

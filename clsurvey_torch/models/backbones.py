@@ -1,5 +1,5 @@
 """PyTorch backbones: the custom VGG family, with optional batch-norm and
-dropout.
+dropout, and AlexNet.
 
 Counterpart of ``clsurvey_tpu/models/backbones.py``:
 
@@ -32,8 +32,10 @@ Counterpart of ``clsurvey_tpu/models/backbones.py``:
   hands in the JAX run's. A kept unit is scaled by 2, as flax does.
 
 Parameter names are the JAX package's (``features.conv_<cfg index>``,
-``features.bn_<cfg index>``, ``trunk.fc_<j>``), so ``models/convert.py``
-maps them one to one.
+``features.bn_<cfg index>``, ``trunk.fc_<j>``; AlexNet's flat ``conv_<i>`` /
+``fc_<j>``), so ``models/convert.py`` maps them one to one. Each backbone's
+``drop_dims`` are the widths of its dropout keep-masks, which the engine
+draws.
 Weight init mirrors torchvision's VGG ``_initialize_weights``:
 kaiming-normal (fan_out, relu) for convs, N(0, 0.01) for linears (kaiming
 for tiny_CNN's trunk, like the JAX package), zero biases."""
@@ -46,6 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from clsurvey_torch.ops.conv import conv2d
 from clsurvey_torch.ops.pool import pool2x2
 
 # Feature-extractor configs, numbers-as-data from the reference table
@@ -120,6 +123,8 @@ class VGGBackbone(nn.Module):
             self.trunk[f"fc_{j}"] = nn.Linear(fan_in, int(d))
             fan_in = int(d)
         self.feature_dim = int(classifier_dims[-1])
+        # dropout follows each trunk layer: masks of the layers' widths
+        self.drop_dims = tuple(int(d) for d in classifier_dims)
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -200,8 +205,8 @@ class VGGBackbone(nn.Module):
                 x = y.permute(0, 3, 1, 2)
                 continue
             conv = self.features[f"conv_{i}"]
-            x = F.conv2d(_cast(x, dt), _cast(conv.weight, dt),
-                         _cast(conv.bias, dt), padding=1)
+            x = conv2d(_cast(x, dt), _cast(conv.weight, dt),
+                       _cast(conv.bias, dt), padding=1)
             if self.batch_norm:
                 x = self._bn(x, i, batch_stats, train, new_stats)
             x = torch.relu(x)
@@ -222,4 +227,114 @@ class VGGBackbone(nn.Module):
             if drop:
                 x = x * (dropout_masks[j].to(x.dtype)
                          * (1.0 / (1.0 - DROPOUT_RATE)))
+        return x
+
+
+# AlexNet (ref:src/models/net.py:96-125 wraps torchvision's): (out, kernel,
+# stride, padding) per conv, a 3x3/2 max-pool after convs 0, 1 and 4
+ALEX_CONVS = ((64, 11, 4, 2), (192, 5, 1, 2), (384, 3, 1, 1),
+              (256, 3, 1, 1), (256, 3, 1, 1))
+ALEX_POOL_AFTER = (0, 1, 4)
+ALEX_FC = 4096
+
+
+def alexnet_smid(px: int) -> int:
+    """Spatial extent after AlexNet's conv / pool stack (6 at 224 px, 2 at
+    96); an input below 63 px leaves nothing to pool and raises."""
+    n = int(px)
+    for i, (_, k, st, p) in enumerate(ALEX_CONVS):
+        n = (n + 2 * p - k) // st + 1
+        if i in ALEX_POOL_AFTER:
+            n = (n - 3) // 2 + 1
+    if n < 1:
+        raise ValueError(f"AlexNet needs inputs of at least 63 px, not {px}")
+    return n
+
+
+class AlexNetBackbone(nn.Module):
+    """Counterpart of ``clsurvey_tpu/models/backbones.py:AlexNetBackbone``:
+    five convs, each with ReLU, ``F.max_pool2d(3, 2)`` after convs 0, 1 and
+    4 (the JAX package pools AlexNet with flax's ``max_pool``, not with its
+    Pallas kernel, so no pool kernel runs here), the NHWC flatten (6*6*256
+    at 224 px), then per FC layer dropout *before* the dense layer, then
+    ReLU (AlexNet's order, not the VGG trunk's). The two keep-masks are
+    handed in, of the FC layers' input widths (``drop_dims``). Parameters
+    are top-level ``conv_<i>`` / ``fc_<j>``, as in the JAX package's flat
+    tree. The same ``forward`` interface as :class:`VGGBackbone`; no
+    batch-norm, so ``batch_stats`` is passed through."""
+
+    dropout = True
+
+    def __init__(self, input_size: Sequence[int], dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        cin = 3
+        for i, (f, k, st, p) in enumerate(ALEX_CONVS):
+            setattr(self, f"conv_{i}", nn.Conv2d(cin, f, k, stride=st,
+                                                 padding=p))
+            cin = f
+        h, w = (alexnet_smid(int(n)) for n in input_size)
+        self.flat_dim = cin * h * w
+        self.fc_0 = nn.Linear(self.flat_dim, ALEX_FC)
+        self.fc_1 = nn.Linear(ALEX_FC, ALEX_FC)
+        self.feature_dim = ALEX_FC
+        self.drop_dims = (self.flat_dim, ALEX_FC)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """The JAX package's ``conv_init`` (kaiming-normal, fan_out) and
+        ``dense_init`` (N(0, 0.01)), zero biases."""
+        with torch.no_grad():
+            for i in range(len(ALEX_CONVS)):
+                conv = getattr(self, f"conv_{i}")
+                fan_out = conv.out_channels * conv.kernel_size[0] \
+                    * conv.kernel_size[1]
+                conv.weight.normal_(0.0, (2.0 / fan_out) ** 0.5,
+                                    generator=generator)
+                conv.bias.zero_()
+            for fc in (self.fc_0, self.fc_1):
+                fc.weight.normal_(0.0, 0.01, generator=generator)
+                fc.bias.zero_()
+
+    def init_batch_stats(self) -> dict[str, torch.Tensor]:
+        return {}
+
+    def forward(self, x: torch.Tensor, batch_stats: dict | None = None,
+                train: bool = False, dropout_masks=None,
+                part: str = "all"):
+        """As :meth:`VGGBackbone.forward`: ``part="features"`` returns the
+        NHWC-flattened float32 conv output (EBLL's autoencoder space),
+        ``part="trunk"`` runs the FC layers on such a tensor."""
+        if part != "trunk":
+            x = self._features(x)
+        if part != "features":
+            x = self._trunk(x, train, dropout_masks)
+        x = x.to(torch.float32)
+        return (x, batch_stats) if train else x
+
+    def _features(self, x_nhwc):
+        dt = self.dtype
+        x = x_nhwc.permute(0, 3, 1, 2)  # NCHW, channels_last
+        for i, (_, _, st, p) in enumerate(ALEX_CONVS):
+            conv = getattr(self, f"conv_{i}")
+            x = torch.relu(conv2d(_cast(x, dt), _cast(conv.weight, dt),
+                                  _cast(conv.bias, dt), stride=st,
+                                  padding=p))
+            if i in ALEX_POOL_AFTER:
+                x = F.max_pool2d(x, 3, 2)
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+
+    def _trunk(self, x, train, dropout_masks):
+        dt = self.dtype
+        if train and (dropout_masks is None or len(dropout_masks) != 2):
+            raise ValueError(
+                "a train-mode forward of AlexNet needs one keep-mask per FC "
+                "layer from the caller (Engine.train_epoch draws them from "
+                "the epoch's generator)")
+        for j, fc in enumerate((self.fc_0, self.fc_1)):
+            if train:
+                x = x * (dropout_masks[j].to(x.dtype)
+                         * (1.0 / (1.0 - DROPOUT_RATE)))
+            x = torch.relu(F.linear(_cast(x, dt), _cast(fc.weight, dt),
+                                    _cast(fc.bias, dt)))
         return x

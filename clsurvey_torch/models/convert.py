@@ -12,6 +12,10 @@ batch-norm layer's ``bn_<i>/{scale,bias}`` become ``features.bn_<i>.scale``
 and ``.bias``, and its running statistics, flax's separate ``batch_stats``
 collection ``{'features': {'bn_<i>': {'mean', 'var'}}}``, become the flat
 ``{'features.bn_<i>.mean', 'features.bn_<i>.var'}`` dict the backbone takes.
+AlexNet's JAX tree is flat, ``{'conv_<i>' | 'fc_<j>': {'kernel', 'bias'}}``
+with no ``features`` / ``trunk`` level, and its port names are
+``conv_<i>.weight`` and so on; the same two functions map it, and ``fc_0``'s
+rows line up unchanged there too (both packages flatten NHWC).
 
 Both functions take any tree shaped like the backbone's weights: a method's
 importance trees (``omega``, ``theta_star``, SI's ``w``) and PackNet's uint8
@@ -67,12 +71,22 @@ def _leaf_to_jax(t: torch.Tensor, suffix: str) -> np.ndarray:
 def params_from_jax(tree: dict, device=None,
                     dtype=np.float32) -> dict[str, torch.Tensor]:
     """JAX-layout numpy pytree -> ``{torch parameter name: tensor}``, cast
-    to ``dtype`` (None keeps each leaf's)."""
-    return {f"{group}.{layer}.{_SUFFIX[leaf]}":
-            _leaf_from_jax(value, leaf, device, dtype)
-            for group, layers in tree.items()
-            for layer, leaves in layers.items()
-            for leaf, value in leaves.items()}
+    to ``dtype`` (None keeps each leaf's). The tree may nest at any depth:
+    the VGG family's ``features`` / ``trunk`` level, or AlexNet's flat
+    ``conv_<i>`` / ``fc_<j>``; the name is the path, dot-joined, with the
+    leaf's torch name last."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: dict, prefix: str) -> None:
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{key}.")
+            else:
+                out[prefix + _SUFFIX[key]] = _leaf_from_jax(
+                    value, key, device, dtype)
+
+    walk(tree, "")
+    return out
 
 
 def params_to_jax(params: dict[str, torch.Tensor] | nn.Module) -> dict:
@@ -82,10 +96,19 @@ def params_to_jax(params: dict[str, torch.Tensor] | nn.Module) -> dict:
         params = dict(params.named_parameters())
     tree: dict = {}
     for name, t in params.items():
-        group, layer, suffix = name.split(".")
-        tree.setdefault(group, {}).setdefault(layer, {})[_INVERSE[suffix]] = \
-            _leaf_to_jax(t, suffix)
+        *path, suffix = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[_INVERSE[suffix]] = _leaf_to_jax(t, suffix)
     return tree
+
+
+def port_layout(tree: dict) -> bool:
+    """True for a flat ``{torch parameter name: leaf}`` tree (the port's
+    own layout, which epoch files of earlier port versions hold), False for
+    a JAX-layout pytree: only the port's names hold a dot."""
+    return any("." in name for name in tree)
 
 
 def hat_params_from_jax(tree: dict, device=None) -> dict[str, torch.Tensor]:

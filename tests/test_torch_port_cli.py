@@ -109,7 +109,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'clsurvey_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'clsurvey_tpu'))\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('clsurvey_torch.')]))\n"
         "assert not bad, bad\n")
@@ -143,14 +143,55 @@ def test_timing_mode_runs_a_shorter_sequence_whole(two_roots):
     assert sorted(manager.extras["task_seconds"]) == [1, 2]
 
 
+ALEX_ARGV = ["--ds_name", "synthetic_2t_4c_64px_16n", "--num_epochs", "1",
+             "--batch_size", "16", "--lr_grid", "1e-2",
+             "--max_attempts_per_task", "1"]
+
+
 @pytest.mark.parametrize("model,extra,match", [
     (ARGV[0], ["--profile"], "item 4: profiling"),
-    ("alexnet", ["--method_name", "HAT"], "item 2: AlexNet"),
-    ("alexnet", ["--method_name", "pathnet"], "item 2: AlexNet"),
-    (ARGV[0], ["--ds_name", "tiny"], "item 2: AlexNet and the datasets")])
-def test_later_slices_raise(model, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tmain.cli([model] + ARGV[1:] + ["--device", "cpu"] + extra)
+    pytest.param("alexnet", ["--method_name", "HAT"] + ALEX_ARGV, None,
+                 id="alexnet-extra1-item 2: AlexNet"),
+    pytest.param("alexnet", ["--method_name", "pathnet",
+                             "--static_hyperparams", "4;1"] + ALEX_ARGV,
+                 None, id="alexnet-extra2-item 2: AlexNet"),
+    pytest.param(ARGV[0], ["--ds_name", "tiny"], "tinyimagenet.prepare",
+                 id="tiny_CNN_cl_32_32-extra3-item 2: AlexNet and the "
+                    "datasets")])
+def test_later_slices_raise(two_roots, model, extra, match):
+    """Only the items of later slices raise ``NotImplementedError``, naming
+    the item: ``--profile`` (item 4). Item 2's cases, which raised before it
+    was ported, now run: HAT and PathNet on AlexNet (64 px, one epoch)
+    through the CLI leave their AlexNet models, and ``--ds_name tiny``
+    looks for its prepared bundles under the config's ``ds_root_path`` and
+    says how to prepare them."""
+    use, _, port_root = two_roots
+    use(port_root)
+    argv = [model] + ARGV[1:] + ["--device", "cpu"] + extra
+    if match == "item 4: profiling":
+        with pytest.raises(NotImplementedError, match=match):
+            tmain.cli(argv)
+    elif match is not None:
+        with pytest.raises(FileNotFoundError, match=match):
+            tmain.cli(argv)
+    else:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)
+        try:
+            manager = tmain.cli(argv)
+        finally:
+            torch.set_num_threads(threads)
+        best = jio.load(manager.best_model_path(2, create=False))
+        if "HAT" in extra:
+            assert best["meta"]["hat"]
+            assert best["params"]["conv_0"]["kernel"].shape == (11, 11, 3,
+                                                                 64)
+            assert best["params"]["fc_0"]["kernel"].shape == (256, 4096)
+        else:  # PathNetAlexNet at 64 px: kernels 8, 6 and 2
+            assert best["meta"]["pathnet"]
+            assert best["params"]["conv_0_kernel"].shape == (4, 8, 8, 3, 16)
+            assert best["params"]["fc_0_kernel"].shape == (4, 5 * 5 * 66,
+                                                           528)
 
 
 REG_ARGV = [ARGV[0], "--ds_name", "synthetic_2t_4c_32px", "--num_epochs", "2",

@@ -18,7 +18,9 @@ need not have; nothing here uses it.)
   an input one element off), each launch counted on its route;
 - the pool pair under ``torch.func.vmap(grad)``: one launch each, equal to
   a per-sample loop;
-- the backbone on the card against the same backbone on the CPU."""
+- the backbone on the card against the same backbone on the CPU;
+- the port's float32 conv (``ops/conv.py``: its weight gradient a GEMM)
+  against float64 on the card, at AlexNet's 5x5 conv."""
 
 import numpy as np
 import pytest
@@ -179,3 +181,29 @@ def test_backbone_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(f_gpu, f_cpu, rtol=1e-4, atol=1e-5)
     for a, b in zip(g_gpu, g_cpu):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+def test_conv_weight_grad_is_float32_exact_on_the_card(cuda):
+    """AlexNet's conv_1 (64 -> 192, 5x5, pad 2, 27x27) at batch 32,
+    channels_last: forward, input and weight gradient of the port's conv
+    in float32 within 1e-4 of the largest float64 entry (cuDNN's own
+    float32 weight gradient here was 1e-2 off, ``utils/conv_precision``)."""
+    from clsurvey_torch.ops.conv import conv2d
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.relu(torch.randn(32, 64, 27, 27, generator=gen, device=cuda,
+                               dtype=torch.float64)).requires_grad_()
+    w = (torch.randn(192, 64, 5, 5, generator=gen, device=cuda,
+                     dtype=torch.float64) * 0.035).requires_grad_()
+    y = torch.nn.functional.conv2d(x, w, padding=2)
+    dy = torch.randn(y.shape, generator=gen, device=cuda, dtype=torch.float64)
+    want = (y,) + torch.autograd.grad(y, (x, w), dy)
+    x32, w32 = (t.detach().float().contiguous(
+        memory_format=torch.channels_last).requires_grad_() for t in (x, w))
+    y32 = conv2d(x32, w32, None, 1, 2)
+    got = (y32,) + torch.autograd.grad(
+        y32, (x32, w32), dy.float().contiguous(
+            memory_format=torch.channels_last))
+    for g, e in zip(got, want):
+        top = float(e.abs().max())
+        assert float((g.double() - e).abs().max()) <= 1e-4 * top

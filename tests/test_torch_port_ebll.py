@@ -167,7 +167,7 @@ def test_five_adadelta_steps_from_the_jax_init_and_permutation_match():
                                           keep[part][leaf])
 
 
-def test_own_init_and_permutations_and_alexnet():
+def test_own_init_and_permutations_and_alexnet(tmp_path, monkeypatch):
     ae = tebll.init_autoencoder(torch.Generator().manual_seed(0), 1024, 100)
     bound = (6.0 / 1124) ** 0.5
     for part, shape in (("enc", (1024, 100)), ("dec", (100, 1024))):
@@ -186,9 +186,15 @@ def test_own_init_and_permutations_and_alexnet():
     (ae1, acc1), (ae2, acc2) = run(), run()
     assert acc1 == acc2
     np.testing.assert_array_equal(ae1["dec"]["kernel"], ae2["dec"]["kernel"])
-    with pytest.raises(NotImplementedError, match="item 2: AlexNet"):
+    # AlexNet is ported: EBLL on alexnet_pretrained reaches the pretrained
+    # weights, and without <models_root>/alexnet_imagenet.npz it says so
+    monkeypatch.setenv("CLSURVEY_ROOT", str(tmp_path))
+    monkeypatch.delenv("CLSURVEY_ALLOW_SCRATCH_PRETRAINED", raising=False)
+    tconfig.set_config(None)
+    with pytest.raises(FileNotFoundError, match="alexnet_imagenet.npz"):
         tmain.cli(["alexnet_pretrained"] + ARGV[1:]
-                  + ["--method_name", "EBLL"])
+                  + ["--method_name", "EBLL", "--ds_name",
+                     "synthetic_2t_4c_64px_16n"])
 
 
 def test_ebll_cli_on_the_cpu_and_its_model_in_the_jax_package(

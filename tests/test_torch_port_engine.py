@@ -217,16 +217,19 @@ def _leaves_equal(got, want, where: str = "") -> None:
         assert type(got) is type(want) and got == want, where
 
 
-def _jax_orbax_checkpoint(tmp_path, name, jrule, trtrule, hyper, epochs):
+def _jax_orbax_checkpoint(tmp_path, name, jrule, trtrule, hyper, epochs,
+                          init_kw=None, model=None):
     """The JAX engine trains task 1 of synthetic_2t_4c_32px for ``epochs``
-    epochs with ``jrule``, a resume checkpoint every epoch: where orbax is
-    importable it leaves ``epoch.pth.tar`` with its trees in
-    ``epoch.pth.tar.orbax``. Returns (task data, the port's context with
-    ``trtrule``, the JAX-made init model, the job's keyword arguments)."""
+    epochs with ``jrule`` (its ``init_state`` given ``init_kw``), a resume
+    checkpoint every epoch: where orbax is importable it leaves
+    ``epoch.pth.tar`` with its trees in ``epoch.pth.tar.orbax``. Returns
+    (task data, the port's context with ``trtrule``, the init model, JAX-made
+    unless ``model`` is given, the job's keyword arguments)."""
     spec_j = jreg.parse_model_name("", name, (PX, PX))
     spec_t = treg.parse_model_name("", name, (PX, PX))
-    model = jio.to_host(jreg.init_model_state(
-        spec_j, jax.random.PRNGKey(3), max_tasks=2, classes_per_task=4))
+    if model is None:
+        model = jio.to_host(jreg.init_model_state(
+            spec_j, jax.random.PRNGKey(3), max_tasks=2, classes_per_task=4))
     common = dict(task=0, n_tasks=1, class_counts=[4, 4], mean=MEAN,
                   std=STD, augment=False)
     ctx_j = jtrain.make_context(spec_j, update_rule=jrule, mesh=None,
@@ -240,7 +243,7 @@ def _jax_orbax_checkpoint(tmp_path, name, jrule, trtrule, hyper, epochs):
     state_j = jtrain.TrainState(
         trainable, _jax_trainable(model.get("batch_stats", {})),
         jtrain.tree_zeros_like(trainable),
-        jrule.init_state(trainable, hyper, ctx_j))
+        jrule.init_state(trainable, hyper, ctx_j, **(init_kw or {})))
     job = dict(exp_dir=str(tmp_path), batch_size=32, lr=1e-2, saving_freq=1)
     jtrain.train_task(jtrain.Engine(ctx_j),
                       jtrain.TrainJob(num_epochs=epochs, **job), state_j, td,
@@ -332,30 +335,235 @@ def test_resume_si_with_batch_stats_from_orbax(tmp_path):
     assert set(ck["mstate"]["w"]) == set(ck["trainable"]["params"])
 
 
-def _unconverted_rules():
-    from clsurvey_torch.methods import ebll, lwf, packnet, rehearsal
-
-    return {"LwFRule": lwf.LwFRule(), "EBLLRule": ebll.EBLLRule(),
-            "PackNetRule": packnet.PackNetRule(task_id=1),
-            "GEMRule": rehearsal.GEMRule(n_memories=8),
-            "ReplayRule": rehearsal.ReplayRule(n_memories=8, n_append=4),
-            "ICarlRule": rehearsal.ICarlRule(n_append=4)}
+RULES = ["LwFRule", "EBLLRule", "PackNetRule", "GEMRule", "ReplayRule",
+         "ICarlRule"]
 
 
-@pytest.mark.parametrize("rule_name", ["LwFRule", "EBLLRule", "PackNetRule",
-                                       "GEMRule", "ReplayRule", "ICarlRule"])
+def _rule_case(rule_name, model):
+    """(JAX rule, port rule, hyperparameters, the JAX rule's init_state
+    keywords, the port rule's) for one of the six rules whose method state
+    holds more than trees shaped like the weights: LwF's and EBLL's teacher
+    (EBLL with one autoencoder), PackNet's uint8 masks of task 1, the
+    memory of GEM and of a replay baseline, iCaRL's exemplar store (filled
+    with random rows, so a mis-laid leaf shows)."""
+    from clsurvey_torch.methods import ebll as tebll, lwf as tlwf, \
+        packnet as tpacknet, rehearsal as treh
+    from clsurvey_tpu.methods import ebll as jebll, lwf as jlwf, \
+        packnet as jpacknet, rehearsal as jreh
+    from clsurvey_tpu.ops import masks as jmasks
+
+    rng = np.random.default_rng(11)
+    spec_j = jreg.parse_model_name("", NAME, (PX, PX))
+    if rule_name == "LwFRule":
+        kw = {"prev_model": model}
+        return jlwf.LwFRule(), tlwf.LwFRule(), {"lambda": 0.5}, kw, kw
+    if rule_name == "EBLLRule":
+        flat = (PX // 4) ** 2 * 16  # tiny_CNN's conv output, 8x8x16
+        ae = {"enc": {"kernel": rng.normal(0, .1, (flat, 8)).astype(
+            np.float32), "bias": np.zeros(8, np.float32)},
+              "dec": {"kernel": rng.normal(0, .1, (8, flat)).astype(
+                  np.float32), "bias": np.zeros(flat, np.float32)}}
+        kw = {"prev_model": model, "encoders": [ae]}
+        return (jebll.EBLLRule(spec_j), tebll.EBLLRule(),
+                {"reg_lambda": 0.5, "ebll_reg_alpha": 0.1}, kw, kw)
+    if rule_name == "PackNetRule":
+        masks = jmasks.claim_free(jmasks.init_masks(
+            _jax_trainable(model["params"])), 1)
+        return (jpacknet.PackNetRule(task_id=1),
+                tpacknet.PackNetRule(task_id=1), {}, {"masks": masks},
+                {"masks": tconvert.params_from_jax(jio.to_host(masks),
+                                                   dtype=None)})
+    if rule_name == "GEMRule":
+        return (jreh.GEMRule(n_memories=8), treh.GEMRule(n_memories=8),
+                {"margin": 0.5}, {}, {})
+    if rule_name == "ReplayRule":
+        return (jreh.ReplayRule(n_memories=8, n_append=4),
+                treh.ReplayRule(n_memories=8, n_append=4), {}, {}, {})
+    ex = {"images": rng.integers(0, 256, (8, PX, PX, 3), dtype=np.uint8),
+          "targets": rng.normal(0, 1, (8, 8)).astype(np.float32),
+          "labels": rng.integers(0, 4, 8).astype(np.int32),
+          "task_ids": np.zeros(8, np.int32), "count": np.int32(5)}
+    return (jreh.ICarlRule(n_append=4), treh.ICarlRule(n_append=4),
+            {"lambda": 1.0}, {"exemplars": _jax_trainable(ex)},
+            {"exemplars": ex})
+
+
+def _same_layout(got, want, where: str = "") -> None:
+    """Two host trees with the same structure, and leaves of the same
+    dtype and shape (the values may differ)."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), where
+        for k in want:
+            _same_layout(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_layout(g, w, f"{where}[{i}]")
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), (where, g.dtype,
+                                                          w.dtype)
+
+
+def _jax_written_resumes(tmp_path, rule_name):
+    """The JAX engine trains 1 epoch with the rule and leaves its epoch
+    checkpoint; the port resumes it to the JAX state leaf for leaf (its
+    ``mstate_to_jax`` gives back exactly the JAX tree) and trains the
+    second epoch, writing a JAX-layout file of its own."""
+    spec_j = jreg.parse_model_name("", NAME, (PX, PX))
+    model = jio.to_host(jreg.init_model_state(
+        spec_j, jax.random.PRNGKey(3), max_tasks=2, classes_per_task=4))
+    jrule, trule, hyper, jkw, tkw = _rule_case(rule_name, model)
+    td, ctx_t, _, job = _jax_orbax_checkpoint(
+        tmp_path, NAME, jrule, trule, hyper, epochs=1, init_kw=jkw,
+        model=model)
+    ckpt = str(tmp_path / "epoch.pth.tar")
+    ck = jio.load(ckpt)
+    if ck.get("orbax_state"):
+        from clsurvey_tpu.utils import orbax_io as jorbax
+        want = jorbax.load(ck["orbax_state"])
+    else:
+        want = ck
+    _, resumed = ttrain._load_resume(ckpt, "cpu", trule)
+    _leaves_equal(tio.to_host(trule.mstate_to_jax(resumed.mstate)),
+                  jio.to_host(want["mstate"]))
+    _leaves_equal(ttrain.trainable_to_host(resumed.trainable),
+                  want["trainable"])
+
+    lines = []
+    state = ttrain.state_from_model(model, None, "cpu")
+    state.mstate = trule.init_state(state.trainable, hyper, ctx_t, **tkw)
+    ttrain.train_task(ttrain.Engine(ctx_t),
+                      ttrain.TrainJob(num_epochs=2, **job), state, td,
+                      log=lines.append)
+    assert any("resumed epoch 1" in line for line in lines)
+    after = jio.load(ckpt)
+    assert after["epoch"] == 1 and "orbax_state" not in after
+    _same_layout(after["mstate"], want["mstate"])
+    return ck
+
+
+@pytest.mark.parametrize("rule_name", RULES)
 def test_orbax_resume_of_an_unconverted_method_state_raises(tmp_path,
                                                             rule_name):
-    """A rule whose method state the port does not convert from the JAX
-    layout refuses a JAX-written Orbax epoch checkpoint up front, naming
-    the rule and the ROADMAP queue, instead of training on a mis-laid
-    state."""
+    """These six rules' method states once had no conversion from the JAX
+    layout, and a JAX-written Orbax epoch checkpoint of theirs raised. Each
+    now resumes it: the port reads the Orbax directory to the JAX engine's
+    method state, leaf for leaf, and finishes the task."""
+    from clsurvey_tpu.utils import orbax_io as jorbax
+
+    if not jorbax.available():
+        pytest.skip("orbax is not installed: the JAX engine writes a "
+                    "plain pickle")
+    ck = _jax_written_resumes(tmp_path, rule_name)
+    assert os.path.isdir(ck["orbax_state"]) and "mstate" not in ck
+
+
+@pytest.mark.parametrize("rule_name", RULES)
+def test_resume_jax_plain_pickle_epoch_file(tmp_path, monkeypatch,
+                                            rule_name):
+    """Where orbax is not importable the JAX engine writes the trees into
+    the epoch pickle itself; the port resumes that file to the JAX state
+    too (it once handed the JAX-layout tree straight to the rule)."""
+    from clsurvey_tpu.utils import orbax_io as jorbax
+
+    monkeypatch.setattr(jorbax, "available", lambda: False)
+    ck = _jax_written_resumes(tmp_path, rule_name)
+    assert "orbax_state" not in ck and "mstate" in ck
+
+
+@pytest.mark.parametrize("rule_name", RULES)
+def test_jax_engine_resumes_the_ports_epoch_file(tmp_path, rule_name):
+    """The port trains 1 epoch with the rule; its epoch checkpoint holds the
+    method state in the layout of the JAX rule's own ``init_state`` (dtypes
+    and shapes included), and the JAX engine resumes it and trains the
+    second epoch."""
+    spec_j = jreg.parse_model_name("", NAME, (PX, PX))
+    spec_t = treg.parse_model_name("", NAME, (PX, PX))
+    model = jio.to_host(jreg.init_model_state(
+        spec_j, jax.random.PRNGKey(3), max_tasks=2, classes_per_task=4))
+    jrule, trule, hyper, jkw, tkw = _rule_case(rule_name, model)
+    common = dict(task=0, n_tasks=1, class_counts=[4, 4], mean=MEAN,
+                  std=STD, augment=False)
+    ctx_t = ttrain.make_context(spec_t, update_rule=trule, device="cpu",
+                                **common)
+    ctx_j = jtrain.make_context(spec_j, update_rule=jrule, mesh=None,
+                                **common)
+    td = tdata.parse("synthetic_2t_4c_32px").get_task_dataset(1)
+    job = dict(exp_dir=str(tmp_path), batch_size=32, lr=1e-2, saving_freq=1)
+    state = ttrain.state_from_model(model, None, "cpu")
+    state.mstate = trule.init_state(state.trainable, hyper, ctx_t, **tkw)
+    ttrain.train_task(ttrain.Engine(ctx_t),
+                      ttrain.TrainJob(num_epochs=1, **job), state, td,
+                      log=lambda *_: None)
+    written = jio.load(str(tmp_path / "epoch.pth.tar"))["mstate"]
+
+    trainable = _jax_trainable({"params": model["params"],
+                                "heads": {k: model["heads"][k]
+                                          for k in ("kernel", "bias")}})
+    jinit = jrule.init_state(trainable, hyper, ctx_j, **jkw)
+    _same_layout(written, jio.to_host(jinit))
+    lines = []
+    _, _, final = jtrain.train_task(
+        jtrain.Engine(ctx_j), jtrain.TrainJob(num_epochs=2, **job),
+        jtrain.TrainState(trainable, {}, jtrain.tree_zeros_like(trainable),
+                          jinit), td, log=lines.append)
+    assert any("resumed epoch 1" in line for line in lines)
+    _same_layout(jio.to_host(final.mstate), jio.to_host(jinit))
+    with open(tmp_path / "error_history.json") as f:
+        assert len(json.load(f)["error_history"]) == 2
+
+
+@pytest.mark.parametrize("rule_name", RULES)
+def test_resume_epoch_file_in_the_ports_older_layout(shared_model, tmp_path,
+                                                     rule_name):
+    """Epoch checkpoints of earlier port versions hold these rules' method
+    states in the port's own layout (flat torch names, host ints); they
+    still resume, to the same tensors and ints."""
+    _, trule, hyper, _, tkw = _rule_case(rule_name, shared_model)
+    _, ctx_t = _contexts()
+    state = ttrain.state_from_model(shared_model, None, "cpu")
+    mstate = trule.init_state(state.trainable, hyper, ctx_t, **tkw)
+    gen = torch.Generator().manual_seed(0)
+    if "memory" in mstate:  # a filled memory, its ring position at 3
+        mem = mstate["memory"]
+        mem["mem_images"].copy_(torch.randint(
+            0, 256, mem["mem_images"].shape, generator=gen))
+        mem["mem_count"].fill_(3)
+        mem["mem_cnt"] = 3
+    old = tio.to_host(mstate)
     tio.save({"epoch": 0, "lr": 1e-2, "best_acc": 0.0, "val_beat_counts": 0,
-              "orbax_state": str(tmp_path / "epoch.pth.tar.orbax")},
-             str(tmp_path / "epoch.pth.tar"))
-    with pytest.raises(RuntimeError, match=f"{rule_name}.*queue 3"):
+              "trainable": ttrain.trainable_to_host(state.trainable),
+              "batch_stats": {},
+              "momentum": ttrain.trainable_to_host(state.momentum),
+              "mstate": old}, str(tmp_path / "epoch.pth.tar"))
+    _, resumed = ttrain._load_resume(str(tmp_path / "epoch.pth.tar"), "cpu",
+                                     trule)
+    _leaves_equal(tio.to_host(resumed.mstate), old)
+    _same_layout(tio.to_host(trule.mstate_to_jax(resumed.mstate)),
+                 tio.to_host(trule.mstate_to_jax(mstate)))
+
+
+@pytest.mark.parametrize("fmt", ["pickle", "orbax"])
+def test_resume_refuses_a_rule_without_conversion(tmp_path, fmt):
+    """A rule with method state of its own but no ``mstate_from_jax`` is
+    refused, Orbax pointer or plain pickle, with an error that names it,
+    rather than handed a tree it would mis-read."""
+    class StubRule(TRule):
+        def init_state(self, trainable, hyperparams, ctx):
+            return {**super().init_state(trainable, hyperparams, ctx),
+                    "extra": torch.zeros(3)}
+
+    ck = {"epoch": 0, "lr": 1e-2, "best_acc": 0.0, "val_beat_counts": 0}
+    if fmt == "orbax":
+        ck["orbax_state"] = str(tmp_path / "epoch.pth.tar.orbax")
+    else:
+        ck.update(trainable={}, batch_stats={}, momentum={},
+                  mstate={"hyper": {}, "extra": np.zeros(3, np.float32)})
+    tio.save(ck, str(tmp_path / "epoch.pth.tar"))
+    with pytest.raises(RuntimeError, match="StubRule.*no conversion"):
         ttrain._load_resume(str(tmp_path / "epoch.pth.tar"), "cpu",
-                            _unconverted_rules()[rule_name])
+                            StubRule())
 
 
 def test_resume_si_epoch_file_in_the_ports_own_layout(shared_model,

@@ -214,22 +214,20 @@ def test_io_files_load_in_either_package(tmp_path):
 @pytest.mark.parametrize("name", ["small_VGG9_cl_128_128_BN",
                                   "small_VGG9_cl_128_128_DROP", "alexnet"])
 def test_unported_models_raise(tmp_path, name):
-    """AlexNet still raises, naming its ROADMAP item; the ``_BN`` and
-    ``_DROP`` variants, which raised before they were ported, now build:
-    their init pickle loads in the JAX package and gives, under the JAX
-    backbone, the port's eval features (rtol 1e-4, atol 1e-5)."""
-    if name == "alexnet":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            treg.parse_model_name("", name, (64, 64))
-        return
-    spec_t = treg.parse_model_name(str(tmp_path), name, (32, 32))
-    spec_j = jreg.parse_model_name(str(tmp_path), name, (32, 32))
+    """The models that once raised, naming their ROADMAP item, now build:
+    the ``_BN`` and ``_DROP`` variants (at 32 px) and AlexNet (at 96 px,
+    a 2x2 final map): the init pickle loads in the JAX package and gives,
+    under the JAX backbone, the port's eval features (rtol 1e-4, atol
+    1e-5)."""
+    px = 96 if name == "alexnet" else 32
+    spec_t = treg.parse_model_name(str(tmp_path), name, (px, px))
+    spec_j = jreg.parse_model_name(str(tmp_path), name, (px, px))
     assert (spec_t.batch_norm, spec_t.dropout) == \
         (spec_j.batch_norm, spec_j.dropout) == \
         (name.endswith("_BN"), name.endswith("_DROP"))
     treg.create_init_model(spec_t, 7, max_tasks=2, classes_per_task=4)
     model = jio.load(spec_t.path)
-    x = np.random.default_rng(0).normal(0, 1, (4, 32, 32, 3)).astype(
+    x = np.random.default_rng(0).normal(0, 1, (4, px, px, 3)).astype(
         np.float32)
     variables = {"params": jax.tree_util.tree_map(jnp.asarray,
                                                   model["params"])}
