@@ -41,7 +41,7 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    encoders in EBLL's models, the merged models and precision caches, the
    batch-norm statistics, the result dicts, and one distillation value and
    one mode-IMM Fisher on the card against the CPU;
-6. rehearsal: on synthetic_3t_20c_64px_200n with its own SI base model,
+6. rehearsal: on synthetic_3t_20c_64px_160n with its own SI base model,
    GEM and ICARL (1024 memories a task), the two replay baselines and
    PackNet through the timing_mode CLI with ``--test`` and one attempt a
    task, counters zeroed before each; checks the memories in the best
@@ -82,7 +82,24 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    ReLU and pool decisions, float64 against float64), a PathNetAlexNet
    eval entry and EBLL's code term on AlexNet's conv features, card vs
    CPU at 224 px;
-9. protocol: bench.py's throughput point (20k random uint8 rows, batch
+9. streaming: splits above the device data budget. ``stream224``:
+   bench.py's AlexNet point through the port's Engine on 21,000 random
+   rows on the host (3,013 MiB), streamed at the default 2,048 MiB budget
+   in 7,000-row chunks, then resident, in bf16 and float32 on cuDNN's
+   default algorithms: a warm-up epoch, then three timed epochs a leg in
+   bf16 and two in float32 (each leg's epoch seconds, img/s and ms a step
+   of its best epoch, the overlap share, the streamed leg's busy share,
+   one chunk's gather and H2D rates, both legs' peak memory; the two legs'
+   weights equal after the first timed epoch in bf16, and in float32
+   after one more, untimed epoch a leg with cuDNN's deterministic
+   algorithms; the streamed peak below the resident one by the split less
+   two chunks; every gather native; A, no pool kernel). ``stream-cli``:
+   finetuning small_VGG9_cl_128_128 through the timing_mode CLI with
+   ``--test --profile`` at a 16 MiB budget, so that train, val and test
+   stream (A, B1, B2 on the vec route, the best models, the result dicts,
+   a trace of the first task naming A's kernel), then EWC's Fisher and
+   MAS's omega streamed against resident;
+10. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
 
@@ -92,27 +109,31 @@ The kernels phase also holds A, B1 and B2 at batch sizes 1, 67, 128 and
 1024 (``REHEARSAL_BATCHES``); every other size the rehearsal and masks
 phases hand them (iCaRL's 144 + 56 split, the baselines' exemplar rows,
 herding and val tails, PathNet's batch of 64 and its tournament's 256-row
-eval and tail, the tiny run's) is held right after those phases, and A at
-224 px at every size of the RecogSeq run, so every size the path used is
-held.
+eval and tail, the tiny run's, the stream-cli run's eval tails) is held
+right after those phases, and A at 224 px at every size of the RecogSeq
+and stream224 runs, so every size the path used is held.
 
 Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
 before the last is the ``{"kernels": [...]}`` record (A in float32, B1 and
 B2 in float32 and bfloat16; ``ms`` warm, ``cold_ms`` on a cold L2, summed
 over the step's shapes, ``shape_routes`` the route of each): ``launches``
 is the count of the ``cli`` run, ``launches_framework``,
-``launches_methods``, ``launches_rehearsal``, ``launches_masks`` and
-``launches_alexnet`` hold each run's own count (in a partial run the
-counts are null for the phases that did not run; A's rows at AlexNet's
-shape are under ``shapes``), ``held_batches`` the batch sizes held against
-the plain versions; the last line is ``{"ok": true, "device": {...}}``.
+``launches_methods``, ``launches_rehearsal``, ``launches_masks``,
+``launches_alexnet`` and ``launches_streaming`` hold each run's own count
+(in a partial run the counts are null for the phases that did not run;
+A's rows at AlexNet's shape are under ``shapes``), ``held_batches`` the
+batch sizes held against the plain versions; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -585,10 +606,10 @@ def check_cli_model(manager, model: dict) -> None:
 
 FRAMEWORK_MODEL = "small_VGG9_cl_128_128"
 FRAMEWORK_DS = "synthetic_2t_20c_64px_400n"  # two tasks: one Phase-2 task
-# GEM's QP: two constraints. 200 train rows a class, not 400, to keep the
-# whole script under 600 s beside the alexnet phase: still above iCaRL's
-# 153 exemplars a class and GEM's 1,024 memories a task
-REHEARSAL_DS = "synthetic_3t_20c_64px_200n"
+# GEM's QP: two constraints. 160 train rows a class, not 400, to keep the
+# whole script under 600 s beside the alexnet and streaming phases: still
+# above iCaRL's 153 exemplars a class and GEM's 1,024 memories a task
+REHEARSAL_DS = "synthetic_3t_20c_64px_160n"
 FRAMEWORK_METHODS = ("SI", "EWC", "MAS")
 MAX_ATTEMPTS = 2
 # one attempt a task in the rehearsal phase: the cut that keeps the whole
@@ -2383,6 +2404,488 @@ def phase_alexnet(card: str) -> dict:
     return {"rows": rows, "launches": launches, "sizes": sizes}
 
 
+# ---------------------------------------------------------------------------
+# streaming: splits above the device data budget
+# ---------------------------------------------------------------------------
+
+# an iNaturalist-sized task at 224 px: 21,000 rows are 3,013 MiB, above
+# the default 2,048 MiB budget, so they stream in chunks of half of it
+# (7,133 rows, 7,000 in whole batches): three chunks an epoch, no padding
+STREAM_ROWS = 21000
+# the stream-cli run's budget: 8,000 train rows at 64 px (94 MiB) stream in
+# 600-row chunks, the 2,000-row val and test splits in 682-row ones
+STREAM_CLI_BUDGET_MB = 16
+# the importance passes, streamed against resident: 700 of task 1's train
+# rows (8.2 MiB) at an 8 MiB budget stream in chunks of 200 (EWC) and 336
+# (MAS) rows
+STREAM_IMPORTANCE = (700, 8)
+WEIGHT_REL_TOL = 1e-5  # streamed vs resident epoch, of a leaf's largest
+# a stream224 leg's timed epochs after its warm-up epoch: bf16's, host-bound
+# in part, vary more from epoch to epoch than fp32's (within 1%)
+STREAM_TIMED_EPOCHS = {"bf16": 3, "fp32": 2}
+
+
+def _host_state(state):
+    """The train state's trainable and momentum leaves, copied to the
+    host: the start of both legs' epochs."""
+    from clsurvey_torch.engine.train import tree_map
+
+    return {"trainable": tree_map(lambda t: t.detach().cpu().clone(),
+                                  state.trainable),
+            "momentum": tree_map(lambda t: t.detach().cpu().clone(),
+                                 state.momentum),
+            "batch_stats": state.batch_stats, "mstate": state.mstate}
+
+
+def _device_state(host):
+    from clsurvey_torch.engine.train import TrainState, tree_map
+
+    trainable = tree_map(lambda t: t.cuda().requires_grad_(),
+                         host["trainable"])
+    return TrainState(trainable, host["batch_stats"],
+                      tree_map(lambda t: t.cuda(), host["momentum"]),
+                      host["mstate"])
+
+
+def _peaks() -> dict:
+    """Peak device memory since the last reset: ``allocated`` (what
+    ``max_memory_allocated`` reads: blocks, each of which may carry up to
+    1 MiB the caching allocator did not split off) and ``requested`` (the
+    bytes the program asked for)."""
+    stats = torch.cuda.memory_stats()
+    return {"allocated": stats["allocated_bytes.all.peak"],
+            "requested": stats["requested_bytes.all.peak"]}
+
+
+def _profiled_epoch(run) -> dict:
+    """One epoch under the profiler: wall ms, kernel ms (copies left
+    out), the share of the wall the card spent in kernels, and the
+    host-to-device copies' ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    us = kernel_us(prof)
+    kernel_ms = sum(v for k, v in us.items()
+                    if not k.startswith(("Memcpy", "Memset"))) / 1e3
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "device_busy_share": kernel_ms / wall_ms,
+            "h2d_ms": sum(v for k, v in us.items()
+                          if k.startswith("Memcpy HtoD")) / 1e3}
+
+
+def _timed_epochs(epoch, start, n: int):
+    """``n`` epochs, ``epoch(state, e)`` for e = 1, 2, ..., n, from the host
+    state ``start`` put on the card, with the peak memory counters reset
+    after it. As in a task, only an epoch's input state and the state it
+    builds are alive. Returns each epoch's seconds, the trainable leaves on
+    the host after the first, and the bytes allocated at the start."""
+    from clsurvey_torch.engine.train import tree_leaves
+
+    state = _device_state(start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    seconds, first = [], None
+    for e in range(1, n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = epoch(state, e)
+        loss = float(metrics["loss"])
+        seconds.append(time.perf_counter() - t0)
+        if loss != loss or abs(loss) == float("inf"):
+            raise AssertionError(f"epoch {e}: loss {loss}")
+        if first is None:
+            first = [t.detach().cpu() for t in tree_leaves(state.trainable)]
+    return seconds, first, start_bytes
+
+
+def _leaf_gap(got, want) -> float:
+    """The largest gap of two lists of leaves, each leaf's over its
+    largest entry in ``want``."""
+    return max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+               for a, b in zip(got, want))
+
+
+def _cudnn_deterministic_leaves(run) -> list:
+    """The trainable leaves on the host after ``run()``, which returns a
+    (state, metrics) pair, with cuDNN's deterministic algorithms; the flag
+    is restored after."""
+    from clsurvey_torch.engine.train import tree_leaves
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, _ = run()
+        return [t.detach().cpu() for t in tree_leaves(state.trainable)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def stream224(card: str) -> dict:
+    """bench.py's AlexNet point (224 px, batch 200, 25 classes, lr 5e-3,
+    flips on) through the port's Engine on ``STREAM_ROWS`` random uint8
+    rows on the host, streamed at the default data budget, in bf16 and in
+    float32, on cuDNN's default algorithms: one streamed warm-up epoch,
+    then ``STREAM_TIMED_EPOCHS`` timed epochs streamed and as many resident
+    (the whole split on the card), both legs from the same start with the
+    same permutations and generator seeds, and two streamed chunks
+    profiled (alexnet224 profiles the resident leg). Checks the two legs'
+    weights after the first timed epoch (bf16: ``WEIGHT_REL_TOL`` of each
+    leaf's largest entry); in float32, whose default cuDNN algorithms differ
+    run to run, the same check on one more, untimed epoch of each leg with
+    cuDNN's deterministic algorithms; the peak memory requested (streamed
+    below resident by the split less two chunks); that every gather took
+    the native route; and that A launched at (200, 224, 224, 3) and no pool
+    kernel. Prints each leg's epoch seconds, img/s and ms a step of its
+    best epoch, the overlap share (best against best, and median against
+    median), the streamed leg's busy share, the gather and H2D rates of one
+    chunk. Returns {run: launches}."""
+    import numpy as np
+
+    from clsurvey_torch.engine.train import (
+        ChunkFeed, Engine, chunk_plan, data_budget_bytes, make_context,
+        place, state_from_model, stream_chunk_rows)
+    from clsurvey_torch.methods.base import UpdateRule
+    from clsurvey_torch.models.registry import ModelSpec, init_model_state
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.utils import rowgather
+
+    os.environ.pop("CLSURVEY_DATA_BUDGET_MB", None)  # the default budget
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    images = np.empty((STREAM_ROWS, ALEX_PX, ALEX_PX, 3), np.uint8)
+    for lo in range(0, STREAM_ROWS, 3000):
+        n = min(3000, STREAM_ROWS - lo)
+        images[lo: lo + n] = torch.randint(
+            0, 255, (n, ALEX_PX, ALEX_PX, 3), dtype=torch.uint8,
+            device="cuda", generator=gen).cpu().numpy()
+    labels = np.random.default_rng(5).integers(
+        0, ALEX_CLASSES, STREAM_ROWS).astype(np.int32)
+    make_s = time.perf_counter() - t0
+    budget = data_budget_bytes()
+    row_bytes = images.nbytes // STREAM_ROWS
+    chunk_rows = stream_chunk_rows(row_bytes)
+    bs, rows = chunk_plan(STREAM_ROWS, ALEX_BS, chunk_rows)
+    if not images.nbytes > budget or (bs, rows) != (ALEX_BS, 7000):
+        raise AssertionError(f"stream224: {images.nbytes} bytes against a "
+                             f"{budget}-byte budget, chunks {rows}")
+    n_chunks = -(-STREAM_ROWS // rows)
+    steps = n_chunks * rows // bs
+    perms = [np.random.default_rng(10 + e).permutation(STREAM_ROWS)
+             for e in range(max(STREAM_TIMED_EPOCHS.values()) + 1)]
+    seed = lambda e: torch.Generator(device="cuda").manual_seed(20 + e)
+    out, records = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        spec = ModelSpec(name="alexnet", arch="alexnet",
+                         input_size=(ALEX_PX, ALEX_PX), compute_dtype=dtype)
+        model = init_model_state(spec, seed=7, max_tasks=10,
+                                 classes_per_task=ALEX_CLASSES)
+        rule = UpdateRule()
+        ctx = make_context(spec, task=0, n_tasks=1,
+                           class_counts=[ALEX_CLASSES] * 10, mean=MEAN,
+                           std=STD, update_rule=rule, augment=True,
+                           device="cuda")
+        engine = Engine(ctx)
+        state = state_from_model(model, None, ctx.device)
+        state.mstate = rule.init_state(state.trainable, {}, ctx)
+        streamed = lambda st, e: engine.train_epoch_chunked(
+            st, images, labels, perms[e], seed(e), 5e-3, ALEX_BS,
+            chunk_rows, feed)
+        # streamed leg: the feed's buffers made once, as train_task does
+        parts, t0 = {}, time.perf_counter()
+
+        def done(part):
+            nonlocal t0
+            torch.cuda.synchronize()
+            parts[part], t0 = time.perf_counter() - t0, time.perf_counter()
+
+        feed = ChunkFeed(images.shape[1:], rows, "cuda")
+        done("feed_alloc")
+        _kernels.reset_launches()
+        rowgather.reset_routes()
+        state, _ = streamed(state, 0)  # warm-up epoch
+        start = _host_state(state)
+        del state
+        gc.collect()  # earlier runs' states in reference cycles
+        done("warmup_epoch")
+        memory = {"streamed_free": torch.cuda.memory_allocated()}
+        timed = STREAM_TIMED_EPOCHS[tag]
+        streamed_s, got, memory["streamed_start"] = _timed_epochs(
+            streamed, start, timed)
+        peak_streamed = _peaks()
+        done("streamed_epochs")
+        launches = dict(_kernels.LAUNCHES)
+        routes = dict(rowgather.ROUTES)
+        _no_pool_launches(launches, f"stream224 {tag}")
+        if _kernels.BATCHES["normalize_flip"] != {ALEX_BS}:
+            raise AssertionError(f"stream224 {tag}: A at batch sizes "
+                                 f"{_kernels.BATCHES['normalize_flip']}")
+        if routes["numpy"] or routes["native"] != (1 + timed) * n_chunks:
+            raise AssertionError(f"stream224 {tag}: gather routes {routes}")
+        out[f"stream224_{tag}"] = launches
+        # two chunks (70 steps) under the profiler: one chunk boundary
+        st = _device_state(start)
+        prof_streamed = _profiled_epoch(lambda: engine.train_epoch_chunked(
+            st, images, labels, perms[0][: 2 * rows], seed(0), 5e-3,
+            ALEX_BS, chunk_rows, feed))
+        done("streamed_profile")
+        # one chunk alone: the native gather into the pinned buffer, and
+        # its copy to the card
+        t0 = time.perf_counter()
+        rowgather.gather_rows(images, perms[1][:rows], out=feed.host[0])
+        gather_s = time.perf_counter() - t0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        feed.dev[0].copy_(feed.host[0], non_blocking=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        h2d_ms = ev[0].elapsed_time(ev[1])
+        chunk_bytes = feed.host[0].numel()
+        done("one_chunk")
+        if dtype == torch.float32:
+            det_streamed = _cudnn_deterministic_leaves(
+                lambda: streamed(_device_state(start), 1))
+            done("deterministic_streamed_epoch")
+        del st, feed
+        gc.collect()
+
+        # resident leg: the whole split on the card
+        memory["resident_free"] = torch.cuda.memory_allocated()
+        dev_images = place(images, "cuda")
+        dev_labels = place(labels, "cuda").long()
+        resident = lambda sr, e: engine.train_epoch(
+            sr, dev_images, dev_labels, torch.from_numpy(perms[e]).cuda(),
+            seed(e), 5e-3, ALEX_BS)
+        done("place_split")
+        resident_s, want, memory["resident_start"] = _timed_epochs(
+            resident, start, timed)
+        peak_resident = _peaks()
+        done("resident_epochs")
+        gaps = {"weight_gap_max_rel": _leaf_gap(got, want)}
+        if dtype == torch.float32:
+            gaps["weight_gap_deterministic_max_rel"] = _leaf_gap(
+                det_streamed, _cudnn_deterministic_leaves(
+                    lambda: resident(_device_state(start), 1)))
+            done("deterministic_resident_epoch")
+        del dev_images, dev_labels, engine, ctx
+        best_s, best_r = min(streamed_s), min(resident_s)
+        record = {
+            "stream224": f"Engine train, bs {ALEX_BS}, {ALEX_CLASSES} "
+                         f"classes, {STREAM_ROWS} host rows "
+                         f"({images.nbytes} bytes), {rows}-row chunks, "
+                         f"flips on, cuDNN's default algorithms",
+            "dtype": str(dtype), "steps": steps,
+            "streamed_epoch_s": streamed_s, "resident_epoch_s": resident_s,
+            "streamed_img_per_s": steps * bs / best_s,
+            "resident_img_per_s": steps * bs / best_r,
+            "streamed_ms_per_step": best_s / steps * 1e3,
+            "resident_ms_per_step": best_r / steps * 1e3,
+            "overlap_share": best_r / best_s,
+            "overlap_share_median": float(np.median(resident_s)
+                                          / np.median(streamed_s)),
+            "streamed_profile": prof_streamed,
+            "gather_gb_per_s": chunk_bytes / gather_s / 1e9,
+            "h2d_gb_per_s": chunk_bytes / h2d_ms / 1e6,
+            "chunk_bytes": chunk_bytes, "parts_s": parts,
+            "peak_streamed": peak_streamed,
+            "peak_resident": peak_resident, "memory_allocated": memory,
+            **gaps, "launches": launches,
+            "gather_routes": routes, "host_split_make_s": make_s,
+            "card": card}
+        log(json.dumps(record))
+        records.append(record)
+    for record in records:
+        tag = record["dtype"]
+        gap = record.get("weight_gap_deterministic_max_rel",
+                         record["weight_gap_max_rel"])
+        if not gap <= WEIGHT_REL_TOL:
+            raise AssertionError(f"stream224 {tag}: the streamed epoch's "
+                                 f"weights are {gap} off the resident one's")
+        need = images.nbytes - 2 * record["chunk_bytes"]
+        below = record["peak_resident"]["requested"] \
+            - record["peak_streamed"]["requested"]
+        if not below >= need:
+            raise AssertionError(
+                f"stream224 {tag}: peak {record['peak_streamed']} streamed "
+                f"against {record['peak_resident']} resident, {below} "
+                f"bytes below, not {need}")
+    return out
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def stream_cli(root: str, card: str) -> tuple[dict, set]:
+    """finetuning small_VGG9_cl_128_128 on ``FRAMEWORK_DS`` (two tasks)
+    through the timing_mode CLI with ``--test --profile`` at a
+    ``STREAM_CLI_BUDGET_MB`` budget, so that train, val and test stream,
+    the counters zeroed just before and read just after: the streaming
+    line, A, B1 and B2 launched (every pool launch on the vec route), every
+    gather native, chunked evals, the best models and result dicts, and a
+    trace of the first task that names A's device kernel. Then EWC's
+    Fisher and MAS's omega on ``STREAM_IMPORTANCE`` rows, streamed against
+    resident. Returns (launches, the batch sizes the kernels saw)."""
+    import contextlib
+
+    from clsurvey_torch.engine import train as train_lib
+    from clsurvey_torch.framework import main as cli_main
+    from clsurvey_torch.methods import common
+    from clsurvey_torch.methods.base import UpdateRule
+    from clsurvey_torch.models.convert import params_from_jax
+    from clsurvey_torch.ops import _kernels, importance
+    from clsurvey_torch.utils import config, io as io_lib, rowgather
+
+    os.environ["CLSURVEY_ROOT"] = root
+    config.set_config(None)
+    argv = [FRAMEWORK_MODEL, "--method_name", "finetuning", "--ds_name",
+            FRAMEWORK_DS, "--runmode", "timing_mode", "--gridsearch_name",
+            "timing_mode", "--test", "--profile", "--device", "cuda"]
+    log(f"stream-cli: CLSURVEY_DATA_BUDGET_MB={STREAM_CLI_BUDGET_MB} python "
+        f"-m clsurvey_torch.framework.main", " ".join(argv))
+    chunked = {"evaluate_chunked": 0, "_accumulate_chunked": 0}
+    spies = [(train_lib.Engine, "evaluate_chunked"),
+             (importance, "_accumulate_chunked")]
+    originals = [getattr(owner, name) for owner, name in spies]
+
+    def spy(name, fn):
+        def counted(*args, **kwargs):
+            chunked[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    tee = _Tee(sys.stdout)
+    os.environ["CLSURVEY_DATA_BUDGET_MB"] = str(STREAM_CLI_BUDGET_MB)
+    try:
+        for (owner, name), fn in zip(spies, originals):
+            setattr(owner, name, spy(name, fn))
+        _kernels.reset_launches()
+        rowgather.reset_routes()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            manager = cli_main.cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, routes = dict(_kernels.LAUNCHES), dict(_kernels.ROUTES)
+        gathers = dict(rowgather.ROUTES)
+        sizes = set().union(*_kernels.BATCHES.values())
+        evals = chunked["evaluate_chunked"]
+        text = "".join(tee.parts)
+        for name, count in launches.items():
+            if count <= 0:
+                raise AssertionError(f"stream-cli: kernel {name} never "
+                                     f"launched")
+        for name in ("pool_fwd", "pool_bwd"):
+            if routes[f"{name}_vec"] != launches[name]:
+                raise AssertionError(f"stream-cli: {name} launches off the "
+                                     f"vec route: {routes}")
+        if "streaming train split (" not in text:
+            raise AssertionError("stream-cli: no streaming line in the log")
+        # a val eval an epoch, then the test matrix's 3 entries
+        epochs = len(re.findall(r"epoch \d+: loss=", text))
+        if gathers["numpy"] or not gathers["native"] or \
+                evals < epochs + 3:
+            raise AssertionError(f"stream-cli: gathers {gathers}, "
+                                 f"{evals} chunked evals, {epochs} epochs")
+        models = [io_lib.load(manager.best_model_path(t, create=False))
+                  for t in (1, 2)]
+        for model in models:
+            _finite_tree(model["params"], "stream-cli best model")
+        matrix = eval_matrix(manager)
+        trace_dir = os.path.join(config.load_config().tr_results_root_path,
+                                 "profile", f"{FRAMEWORK_DS}_finetuning")
+        traces = [f for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        trace_bytes = 0
+        for fn in traces:
+            trace_bytes += os.path.getsize(os.path.join(trace_dir, fn))
+            with open(os.path.join(trace_dir, fn)) as f:
+                named = "normalize_flip_vec_kernel" in f.read()
+        if len(traces) != 1 or not named:
+            raise AssertionError(f"stream-cli: traces {traces} in "
+                                 f"{trace_dir}, A's kernel not named")
+
+        # the importance passes on part of task 1's train split, streamed
+        # (a smaller budget) against resident, on the card
+        n_rows, budget_mb = STREAM_IMPORTANCE
+        train = manager.dataset.get_task_dataset(1).train
+        images, labels = train.images[:n_rows], train.labels[:n_rows]
+        ctx = common.build_engine(manager, UpdateRule(), 1,
+                                  augment=False).ctx
+        params = params_from_jax(models[0]["params"], ctx.device)
+        heads = models[0]["heads"]
+        passes = {
+            "ewc_fisher": lambda: importance.ewc_fisher(
+                ctx, params, {}, heads, 0, images, labels, 200),
+            "mas_importance": lambda: importance.mas_importance(
+                ctx, params, {}, heads, 0, images, chunk=MAS_CHUNK)}
+        gaps = {}
+        for name, run in passes.items():
+            os.environ["CLSURVEY_DATA_BUDGET_MB"] = str(budget_mb)
+            before = chunked["_accumulate_chunked"]
+            got = run()
+            if chunked["_accumulate_chunked"] != before + 1:
+                raise AssertionError(f"{name} did not stream")
+            os.environ.pop("CLSURVEY_DATA_BUDGET_MB")
+            want = run()
+            gaps[name] = max(
+                float((got[k] - v).abs().max() / max(float(v.abs().max()),
+                                                      1e-30))
+                for k, v in want.items())
+            if not gaps[name] <= WEIGHT_REL_TOL:
+                raise AssertionError(f"{name}: streamed {gaps[name]:.3g} of "
+                                     f"a leaf's largest entry off resident")
+    finally:
+        for (owner, name), fn in zip(spies, originals):
+            setattr(owner, name, fn)
+        os.environ.pop("CLSURVEY_DATA_BUDGET_MB", None)
+    log(json.dumps({"stream_cli": f"finetuning, timing_mode, 2 tasks, "
+                                  f"{STREAM_CLI_BUDGET_MB} MiB budget, "
+                                  f"--test --profile",
+                    "seconds": wall,
+                    "task_seconds": manager.extras["task_seconds"],
+                    "launches": launches, "pool_routes": routes,
+                    "gather_routes": gathers, "chunked_evals": evals,
+                    "batch_sizes": sorted(sizes), "eval_matrix": matrix,
+                    "trace_bytes": trace_bytes,
+                    "importance_streamed_vs_resident_max_rel": gaps,
+                    "card": card}))
+    return launches, sizes
+
+
+def phase_streaming(card: str) -> dict:
+    """Splits above the device data budget: ``stream224`` (AlexNet at 224
+    px through the Engine, streamed against resident) and ``stream_cli``
+    (the timing_mode CLI streaming every split, with ``--profile``; the
+    importance passes streamed). Returns {"launches": {run: launches},
+    "sizes": the batch sizes stream-cli's kernels saw}."""
+    parts, t0 = {}, time.perf_counter()
+    launches = stream224(card)
+    parts["stream224"], t0 = time.perf_counter() - t0, time.perf_counter()
+    _hold_preprocess_224([ALEX_BS])
+    with tempfile.TemporaryDirectory() as root:
+        launches["stream_cli"], sizes = stream_cli(root, card)
+    parts["stream_cli"] = time.perf_counter() - t0
+    log(json.dumps({"streaming_parts_s": parts, "card": card}))
+    return {"launches": launches, "sizes": sizes}
+
+
 def phase_protocol(card: str) -> None:
     """bench.py's workload through the port's Engine: small_VGG9 at 64 px,
     20k random uint8 rows, batch 200, lr 5e-3, flips on; best of three
@@ -2458,7 +2961,7 @@ def phase_protocol(card: str) -> None:
 
 
 PHASES = ("card", "kernels", "cli", "framework", "methods", "rehearsal",
-          "masks", "alexnet", "protocol")
+          "masks", "alexnet", "streaming", "protocol")
 
 
 def main(argv=None) -> int:
@@ -2499,7 +3002,7 @@ def run(phases: list) -> int:
     timed("card", phase_card, card)
     # None: the phase did not run
     checks = launches = fw_launches = method_launches = None
-    reh_launches = mask_launches = alex = None
+    reh_launches = mask_launches = alex = stream = None
     seen = set()  # batch sizes the rehearsal and masks phases used
     if "kernels" in phases:
         checks = timed("kernels", phase_kernels)
@@ -2528,12 +3031,15 @@ def run(phases: list) -> int:
     if "alexnet" in phases:
         alex = timed("alexnet", phase_alexnet, card)
         seen.update(alex["sizes"])
+    if "streaming" in phases:
+        stream = timed("streaming", phase_streaming, card)
+        seen.update(stream["sizes"])
     held = set(checks["held_batches"]) if checks else set()
     late = sorted(seen - held - {PREPROCESS_SHAPE[0]})
     if late:  # a size the kernels phase did not hold: hold it now
         check_batches(torch.Generator(device="cuda").manual_seed(1), late)
         log(f"kernels agree at the other batch sizes the rehearsal, "
-            f"masks and alexnet phases used: {late}")
+            f"masks, alexnet and streaming phases used: {late}")
         if checks:
             checks["held_batches"] = sorted(held | set(late))
     if "protocol" in phases:
@@ -2567,6 +3073,8 @@ def run(phases: list) -> int:
                  m: n[name] for m, n in mask_launches.items()},
              "launches_alexnet": alex and {
                  m: n[name] for m, n in alex["launches"].items()},
+             "launches_streaming": stream and {
+                 m: n[name] for m, n in stream["launches"].items()},
              "held_batches": checks["held_batches"]}
             for name in sources for dtype in dtypes[name]]}))
     if set(phases) >= set(PHASES):

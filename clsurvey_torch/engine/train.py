@@ -33,14 +33,19 @@ in place (the step returns the same tensors), which saves one copy of the
 weights per step; the weights themselves are replaced, so ``post_step``
 still sees the pre-step values.
 
-Host-streamed (chunked) epochs for splits above the device data budget are
-not ported yet: such a split raises."""
+A split above the device data budget (``data_budget_bytes``) streams from
+the host instead (``Engine.train_epoch_chunked`` / ``evaluate_chunked``,
+``train_task`` decides per split): a thread gathers each chunk of the
+epoch's permutation into a pinned buffer (``utils/rowgather.py``) and copies
+it to the card on a side stream while the card trains on the chunk before
+(``ChunkFeed``)."""
 
 from __future__ import annotations
 
 import functools
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -59,6 +64,7 @@ from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, orbax_io, rng as rng_lib, timing
 from clsurvey_torch.utils.paths import (
     BEST_MODEL_FILENAME, EPOCH_CKPT_FILENAME)
+from clsurvey_torch.utils.rowgather import gather_rows
 
 # Epochs ending above this train loss are treated as divergence (like NaN):
 # healthy losses are O(ln n_classes + reg terms), while a finite-but-
@@ -316,19 +322,63 @@ class Engine:
         if steps == 0:
             raise ValueError("an empty permutation cannot fill one batch")
         perm = torch.as_tensor(perm)[: steps * batch_size].to(ctx.device)
+        batches = ((images.index_select(0, idx), labels.index_select(0, idx))
+                   for idx in perm.view(steps, batch_size))
         per_step: dict = {}
-        for i in range(steps):
-            idx = perm[i * batch_size: (i + 1) * batch_size]
-            x = images.index_select(0, idx)
-            y = labels.index_select(0, idx)
-            flip = (torch.randint(0, 2, (batch_size,), dtype=torch.uint8,
+        state = self._train_batches(state, batches, gen, lr, per_step)
+        return state, {k: torch.stack(v).mean() for k, v in per_step.items()}
+
+    def _train_batches(self, state: TrainState, batches, gen, lr: float,
+                       per_step: dict) -> TrainState:
+        """One step on each (uint8 images, labels) of ``batches``, in
+        order; each step draws its flip mask (augmenting contexts only),
+        then a dropout model's keep-masks, from ``gen`` on the device, and
+        the rule draws after them. Appends each step's metrics (tensors,
+        not read back) to ``per_step``."""
+        ctx = self.ctx
+        for x, y in batches:
+            b = int(x.shape[0])
+            flip = (torch.randint(0, 2, (b,), dtype=torch.uint8,
                                   device=ctx.device, generator=gen)
                     if ctx.augment else None)
             state, metrics = self._train_step(
-                state, x, y, lr, flip,
-                ctx.draw_dropout_masks(batch_size, gen), gen=gen)
+                state, x, y, lr, flip, ctx.draw_dropout_masks(b, gen),
+                gen=gen)
             for k, v in metrics.items():
                 per_step.setdefault(k, []).append(v)
+        return state
+
+    def train_epoch_chunked(self, state: TrainState, images_np, labels_np,
+                            perm, gen: torch.Generator | None, lr: float,
+                            batch_size: int, chunk_rows: int,
+                            feed: "ChunkFeed"):
+        """One epoch over a host-resident split too large for the device
+        (``clsurvey_tpu/engine/train.py:train_epoch_chunked``): the
+        permutation, wrap-padded to whole chunks of ``chunk_rows`` rows
+        (rounded down to whole batches, at most the batch-rounded split),
+        is gathered on the host chunk by chunk and copied to the device
+        while the chunk before trains. The steps, their draws from ``gen``
+        and the metrics (means over every step) are those of
+        :meth:`train_epoch` over the padded permutation, which this epoch
+        therefore equals. ``feed`` holds the chunk buffers, made once for
+        the split with the rows :func:`chunk_plan` gives."""
+        perm = np.asarray(perm, np.int64)
+        batch_size, chunk_rows = chunk_plan(len(perm), batch_size,
+                                            chunk_rows)
+        n_chunks = -(-len(perm) // chunk_rows)
+        use = n_chunks * chunk_rows
+        if use > len(perm):  # every chunk of one shape, every row seen
+            perm = np.concatenate([perm, perm[: use - len(perm)]])
+        if feed.chunk_rows != chunk_rows:
+            raise ValueError(f"a feed of {feed.chunk_rows}-row chunks for an "
+                             f"epoch of {chunk_rows}-row ones")
+        labels = torch.from_numpy(np.asarray(labels_np)[perm]).to(
+            self.ctx.device).long()
+        per_step: dict = {}
+        state = self._train_batches(
+            state, _streamed_batches(feed, images_np, labels, perm,
+                                     batch_size, n_chunks),
+            gen, lr, per_step)
         return state, {k: torch.stack(v).mean() for k, v in per_step.items()}
 
     def evaluate(self, trainable, batch_stats, images, labels,
@@ -376,6 +426,116 @@ class Engine:
         per_class_c, per_class_t = pcc.cpu().numpy(), pct.cpu().numpy()
         acc = float(per_class_c.sum()) / max(float(per_class_t.sum()), 1.0)
         return acc, per_class_c, per_class_t
+
+    def evaluate_chunked(self, trainable, batch_stats, images_np,
+                         labels_np, batch_size: int, chunk_rows: int,
+                         **kwargs):
+        """:meth:`evaluate` over a host-resident split too large for the
+        device (``clsurvey_tpu/engine/train.py:evaluate_chunked``): one
+        chunk of at least ``batch_size`` rows at a time, in order (the last
+        may be short), with the per-class counters summed over the chunks
+        and the accuracy computed from the sums."""
+        n = int(images_np.shape[0])
+        chunk_rows = max(int(chunk_rows), int(batch_size))
+        total_c = total_t = 0.0
+        for lo in range(0, n, chunk_rows):
+            _, pcc, pct = self.evaluate(
+                trainable, batch_stats,
+                place(images_np[lo: lo + chunk_rows], self.ctx.device),
+                np.asarray(labels_np[lo: lo + chunk_rows]), batch_size,
+                **kwargs)
+            total_c, total_t = total_c + pcc, total_t + pct
+        acc = float(np.sum(total_c)) / max(float(np.sum(total_t)), 1.0)
+        return acc, total_c, total_t
+
+
+def _streamed_batches(feed: "ChunkFeed", images_np, labels: torch.Tensor,
+                      perm: np.ndarray, batch_size: int, n_chunks: int):
+    """The (uint8 images, labels) batches of a streamed epoch, in order: a
+    gather thread loads chunk ``c + 1`` while the caller steps through
+    chunk ``c``. One generator for the whole epoch, so that no state of a
+    chunk's start stays alive through the chunk's steps."""
+    rows = feed.chunk_rows
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(feed.load, images_np, perm[:rows], 0)
+        for c in range(n_chunks):
+            pending.result()
+            if c + 1 < n_chunks:  # gather and copy the next chunk now
+                pending = pool.submit(
+                    feed.load, images_np,
+                    perm[(c + 1) * rows: (c + 2) * rows], c + 1)
+            x, y = feed.chunk(c), labels[c * rows: (c + 1) * rows]
+            for i in range(0, rows, batch_size):
+                yield x[i: i + batch_size], y[i: i + batch_size]
+            feed.consumed(c)  # the chunk's steps are all dispatched
+
+
+def chunk_plan(n: int, batch_size: int, chunk_rows: int) -> tuple[int, int]:
+    """(batch size, rows a chunk) of a streamed epoch over ``n`` rows: the
+    batch at most ``n``, the chunk rounded down to whole batches (at least
+    one) and at most the batch-rounded split, as the JAX package rounds
+    them (``clsurvey_tpu/engine/train.py:338-346``)."""
+    batch_size = min(int(batch_size), int(n))
+    if batch_size <= 0:
+        raise ValueError("an empty permutation cannot fill one batch")
+    chunk_rows = max(int(chunk_rows) // batch_size * batch_size, batch_size)
+    return batch_size, min(chunk_rows, n // batch_size * batch_size)
+
+
+class ChunkFeed:
+    """The buffers of a streamed epoch: two host chunks of ``chunk_rows``
+    rows (pinned on the card) and, on the card, two device chunks, made
+    once and reused for every chunk (pinning a gigabyte costs more than
+    copying it). Chunk ``c`` lives in buffer ``c % 2``. :meth:`load`, run
+    on a gather thread, fills the host buffer and, on the card, copies it
+    to the device buffer on a side stream; :meth:`chunk` makes the compute
+    stream wait for that copy; :meth:`consumed`, called once the chunk's
+    steps are dispatched, keeps the next copy into that buffer from
+    starting before they have read it. On the CPU the host buffers are the
+    chunks and the compute is done when its call returns."""
+
+    def __init__(self, row_shape, chunk_rows: int, device):
+        self.chunk_rows = int(chunk_rows)
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        shape = (self.chunk_rows,) + tuple(row_shape)
+        self.host = [torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+                     for _ in range(2)]
+        self.dev = ([torch.empty(shape, dtype=torch.uint8,
+                                 device=self.device) for _ in range(2)]
+                    if cuda else self.host)
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        self._copied = [None, None]    # copy stream: the buffer's last copy
+        self._consumed = [None, None]  # compute stream: its last reader
+
+    def load(self, images_np, rows, c: int) -> None:
+        """Gather ``images_np[rows]`` into buffer ``c % 2`` and, on the
+        card, start its copy to the device."""
+        b = c % 2
+        if self._copied[b] is not None:
+            self._copied[b].synchronize()  # the pinned rows were copied
+        gather_rows(images_np, rows, out=self.host[b])
+        if self.stream is None:
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if self._consumed[b] is not None:
+                self.stream.wait_event(self._consumed[b])
+            self.dev[b].copy_(self.host[b], non_blocking=True)
+            self._copied[b] = torch.cuda.Event()
+            self._copied[b].record(self.stream)
+
+    def chunk(self, c: int) -> torch.Tensor:
+        b = c % 2
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._copied[b])
+        return self.dev[b]
+
+    def consumed(self, c: int) -> None:
+        if self.stream is not None:
+            self._consumed[c % 2] = torch.cuda.Event()
+            self._consumed[c % 2].record(
+                torch.cuda.current_stream(self.device))
 
 
 # ---------------------------------------------------------------------------
@@ -457,20 +617,23 @@ def state_from_model(model: dict, mstate: Any, device) -> TrainState:
 
 def data_budget_bytes() -> int:
     """Device budget for resident split data (CLSURVEY_DATA_BUDGET_MB,
-    default 2048). Splits above it would stream in chunks, which this
-    port does not do yet."""
+    default 2048). A split above it streams through chunks of half the
+    budget (:func:`stream_chunk_rows`), one in compute and one in
+    flight."""
     return int(os.environ.get("CLSURVEY_DATA_BUDGET_MB", "2048")) * 2 ** 20
 
 
-def _resident(split_np: np.ndarray, what: str, device) -> torch.Tensor:
-    budget = data_budget_bytes()
-    if split_np.nbytes > budget:
-        raise NotImplementedError(
-            f"{what} split of {split_np.nbytes / 2**20:.0f} MiB is above "
-            f"the device data budget of {budget / 2**20:.0f} MiB; streamed "
-            f"epochs are not ported to clsurvey_torch yet (ROADMAP.md, "
-            f"queue 1, item 3: streaming)")
-    return torch.from_numpy(np.ascontiguousarray(split_np)).to(device)
+def stream_chunk_rows(row_bytes: int) -> int:
+    """Rows of a streamed chunk: half the data budget."""
+    return max(data_budget_bytes() // 2 // max(int(row_bytes), 1), 1)
+
+
+def place(array, device) -> torch.Tensor:
+    """Rows (a host array or a tensor) as a tensor on ``device``, whatever
+    their size."""
+    if not isinstance(array, torch.Tensor):
+        array = torch.from_numpy(np.ascontiguousarray(array))
+    return array.to(device)
 
 
 def _load_resume(ckpt_path: str, device, rule: UpdateRule | None = None):
@@ -517,13 +680,30 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
     ckpt_path = os.path.join(job.exp_dir, EPOCH_CKPT_FILENAME)
     best_path = os.path.join(job.exp_dir, BEST_MODEL_FILENAME)
 
-    train_images = _resident(task_data.train.images, "train", ctx.device)
-    train_labels = _resident(task_data.train.labels, "train labels",
-                             ctx.device).long()
-    val_images = _resident(task_data.val.images, "val", ctx.device)
-    val_labels = _resident(task_data.val.labels, "val labels",
-                           ctx.device).long()
-    n_train = int(train_images.shape[0])
+    # each split streams from the host if it is above the budget, in
+    # chunks sized by the train split's rows (as the JAX package sizes them)
+    budget = data_budget_bytes()
+    train_np = np.asarray(task_data.train.images)
+    train_labels_np = np.asarray(task_data.train.labels)
+    val_np = np.asarray(task_data.val.images)
+    val_labels_np = np.asarray(task_data.val.labels)
+    n_train = int(train_np.shape[0])
+    stream_train = train_np.nbytes > budget
+    stream_val = val_np.nbytes > budget
+    chunk_rows = stream_chunk_rows(train_np.nbytes // max(n_train, 1))
+    feed = None
+    if stream_train:
+        log(f"streaming train split ({train_np.nbytes / 2**20:.0f} MiB > "
+            f"budget {budget / 2**20:.0f} MiB): "
+            f"{chunk_rows}-row chunks")
+        feed = ChunkFeed(train_np.shape[1:], chunk_plan(
+            n_train, job.batch_size, chunk_rows)[1], ctx.device)
+    else:
+        train_images = place(train_np, ctx.device)
+        train_labels = place(train_labels_np, ctx.device).long()
+    if not stream_val:
+        val_images = place(val_np, ctx.device)
+        val_labels = place(val_labels_np, ctx.device).long()
 
     start_epoch, lr = 0, job.lr
     best_acc, val_beat_counts = 0.0, 0
@@ -586,17 +766,27 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
                                                               epoch))
         flip_gen = rng_lib.generator(job.seed, epoch, 1, device=ctx.device)
         ran_epochs = True
-        state, metrics = engine.train_epoch(
-            state, train_images, train_labels, perm, flip_gen, lr,
-            job.batch_size)
+        if stream_train:
+            state, metrics = engine.train_epoch_chunked(
+                state, train_np, train_labels_np, perm.numpy(), flip_gen,
+                lr, job.batch_size, chunk_rows, feed)
+        else:
+            state, metrics = engine.train_epoch(
+                state, train_images, train_labels, perm, flip_gen, lr,
+                job.batch_size)
         train_loss = float(metrics.pop("loss"))
         train_acc = float(metrics.pop("acc"))
         # the rule's own per-epoch means (GEM's projected share)
         rule_metrics = {k: float(v) for k, v in metrics.items()}
 
-        val_acc, _, _ = engine.evaluate(
-            state.trainable, state.batch_stats, val_images, val_labels,
-            job.eval_batch_size)
+        if stream_val:
+            val_acc, _, _ = engine.evaluate_chunked(
+                state.trainable, state.batch_stats, val_np, val_labels_np,
+                job.eval_batch_size, chunk_rows)
+        else:
+            val_acc, _, _ = engine.evaluate(
+                state.trainable, state.batch_stats, val_images, val_labels,
+                job.eval_batch_size)
         log(f"epoch {epoch}: loss={train_loss:.4f} "
             f"train_acc={train_acc:.4f} val_acc={val_acc:.4f} lr={lr:g}"
             + "".join(f" {k}={v:.4f}" for k, v in rule_metrics.items()))

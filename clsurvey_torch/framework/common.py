@@ -60,7 +60,7 @@ class RunArgs:
     # ref:src/methods/method.py:1204). --no_augment gives exact parity.
     augment: bool = True
     debug: bool = False
-    # profiler trace of the first task (not ported yet: raises)
+    # torch.profiler trace of the first task (framework/main.py)
     profile: bool = False
     # remove the experiment tree before training (ref:src/framework/
     # main.py:142-147 --cleanup_exp; refused when evaluating)

@@ -11,8 +11,8 @@ per-ref-task result dicts
 
 to ``test_method_performances<method><i>.pth`` — the exact artifact shape the
 reference's postprocessing/plot pipeline consumes
-(ref:src/framework/eval.py:176-185). Splits above the device data budget
-would stream in chunks, which this port does not do yet: they raise."""
+(ref:src/framework/eval.py:176-185). A split above the device data budget
+streams through the engine's ``evaluate_chunked``."""
 
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from clsurvey_torch.engine.train import (
-    Engine, data_budget_bytes, make_context, trainable_from_host)
+    Engine, data_budget_bytes, make_context, place, stream_chunk_rows,
+    trainable_from_host)
 from clsurvey_torch.methods.base import UpdateRule
 from clsurvey_torch.models.convert import batch_stats_from_jax
 from clsurvey_torch.utils import io, paths as paths_lib
@@ -237,21 +238,19 @@ def eval_single_model_all_tasks(args, manager, model_path, out_dir: str
 
 def _evaluate_split(engine, trainable, batch_stats, images, labels,
                     batch_size, **kwargs):
-    """Eval of one split, resident on the engine's device; a split over
-    the device data budget would have to stream through chunks."""
+    """Eval of one split: resident on the engine's device, or streamed in
+    chunks of half the device data budget where the split is above it
+    (the same counters either way)."""
     images = np.asarray(images)
     labels = np.asarray(labels)
     if images.nbytes > data_budget_bytes():
-        raise NotImplementedError(
-            f"eval split of {images.nbytes / 2**20:.0f} MiB is above the "
-            f"device data budget of {data_budget_bytes() / 2**20:.0f} MiB; "
-            f"chunked evaluation is not ported to clsurvey_torch yet "
-            f"(ROADMAP.md, queue 1, item 3: streaming)")
-    device = engine.ctx.device
-    return engine.evaluate(
-        trainable, batch_stats,
-        torch.from_numpy(np.ascontiguousarray(images)).to(device),
-        labels, batch_size, **kwargs)
+        return engine.evaluate_chunked(
+            trainable, batch_stats, images, labels, batch_size,
+            stream_chunk_rows(images.nbytes // max(images.shape[0], 1)),
+            **kwargs)
+    return engine.evaluate(trainable, batch_stats,
+                           place(images, engine.ctx.device), labels,
+                           batch_size, **kwargs)
 
 
 def main(args, manager, ds_paths, model_paths):

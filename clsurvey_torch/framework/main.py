@@ -5,8 +5,9 @@ shared first-task base model, then per task dispatch to the LR grid
 (``no_framework`` methods) or the two-phase hyperparameter framework.
 Counterpart of ``clsurvey_tpu/framework/main.py``: the same flags plus
 ``--device`` (default ``cuda``), and ``--test`` runs the eval matrix
-afterwards. Only ``--profile`` raises ``NotImplementedError`` until its
-slice is ported.
+afterwards. ``--profile`` traces the first task with ``torch.profiler``
+(the CPU, and the card's kernels on ``cuda``) into a Chrome trace under
+``<tr_results_root_path>/profile/<ds_name>_<method_name>/``.
 
     python -m clsurvey_torch.framework.main small_VGG9_cl_128_128 \
         --method_name SI --ds_name synthetic_4t_20c_64px_400n \
@@ -110,18 +111,23 @@ def overwrite_dump_args(args: RunArgs, manager: Manager) -> None:
     manager.method.start_scratch = True
 
 
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} is not ported to clsurvey_torch yet (ROADMAP.md, queue 1, "
-        f"{item}); use clsurvey_tpu for it")
+def _start_profiler(device):
+    """A started ``torch.profiler`` profile: host activity, and the card's
+    kernels and copies when the run is on ``cuda``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
 
 
 def main(args: RunArgs):
     rng_lib.set_random(args.seed)
     cfg = load_config()
-    device_lib.resolve(args.device)  # no card for "cuda" -> raise now
-    if args.profile:
-        raise _not_ported("--profile", "item 4: profiling")
+    device = device_lib.resolve(args.device)  # no card for "cuda": raise
     args.apply_runmode()
 
     method = methods_lib.parse(args.method_name)
@@ -175,6 +181,7 @@ def main(args: RunArgs):
 
     timer = timing.PhaseTimer()
     task_seconds = manager.extras.setdefault("task_seconds", {})
+    profiler = None
     ds_paths, model_paths = [], []
     # mid-sequence restart: the earlier tasks' models already exist on
     # disk — seed the eval lists so --test still produces the full
@@ -188,6 +195,12 @@ def main(args: RunArgs):
                               args.max_task_count + 1):
         print("\n" + "*" * 70 + f"\nTRAINING Task {task_counter}\n" + "*" * 70)
         manager.set_dataset(task_counter)
+        if args.profile and task_counter == args.starting_task_count:
+            trace_dir = os.path.join(cfg.tr_results_root_path, "profile",
+                                     f"{args.ds_name}_{args.method_name}")
+            os.makedirs(trace_dir, exist_ok=True)
+            profiler = _start_profiler(device)
+            print(f"[profiler] tracing first task -> {trace_dir}")
         try:
             with timer.phase(f"task_{task_counter}"):
                 if method.no_framework:
@@ -211,6 +224,13 @@ def main(args: RunArgs):
             print("ERROR:", e)
             traceback.print_exc()
             break
+        finally:
+            if profiler is not None:
+                profiler.stop()
+                profiler.export_chrome_trace(os.path.join(
+                    trace_dir, time.strftime("%Y%m%d-%H%M%S")
+                    + f"-{os.getpid()}.pt.trace.json"))
+                profiler = None
     timer.print_timing()
     timing.print_stats()
 

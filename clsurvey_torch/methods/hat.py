@@ -57,7 +57,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from clsurvey_torch.engine.train import (
-    _resident, tree_leaves, tree_unflatten, tree_zeros_like,
+    place, tree_leaves, tree_unflatten, tree_zeros_like,
     trainable_from_host, trainable_to_host)
 from clsurvey_torch.methods import common
 from clsurvey_torch.methods.base import Category, Method
@@ -577,11 +577,12 @@ def hat_train_task(engine: HATEngine, exp_dir: str, trainable, task_data,
     (seed, epoch). Returns (best model in the JAX layout, best val acc)."""
     os.makedirs(exp_dir, exist_ok=True)
     device = engine.device
-    train_images = _resident(task_data.train.images, "train", device)
-    train_labels = _resident(task_data.train.labels, "train labels",
-                             device).long()
-    val_images = _resident(task_data.val.images, "val", device)
-    val_labels = _resident(task_data.val.labels, "val labels", device).long()
+    # whole on the device, whatever the data budget: the JAX package does
+    # not stream HAT's splits either
+    train_images = place(task_data.train.images, device)
+    train_labels = place(task_data.train.labels, device).long()
+    val_images = place(task_data.val.images, device)
+    val_labels = place(task_data.val.labels, device).long()
     n_train = int(train_images.shape[0])
     bsz = min(batch_size, n_train)
 
@@ -784,5 +785,5 @@ class HAT(Method):
             ref_task))
         return engine.evaluate(
             hat_from_host(model, device, False),
-            _resident(split.images, "eval", device), split.labels,
+            place(split.images, device), split.labels,
             manager.args.batch_size)

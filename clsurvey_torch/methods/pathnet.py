@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from clsurvey_torch.engine.train import (
-    _resident, tree_leaves, tree_map, tree_unflatten, tree_zeros_like,
+    place, tree_leaves, tree_map, tree_unflatten, tree_zeros_like,
     trainable_from_host)
 from clsurvey_torch.methods import common
 from clsurvey_torch.methods.base import Category, Method
@@ -528,10 +528,12 @@ class PathNet(Method):
             leaf.requires_grad_()
         class_counts = np.asarray(state["heads"]["class_counts"])
         td = manager.current_task_dataset
-        images = _resident(td.train.images, "train", device)
-        labels = _resident(td.train.labels, "train labels", device).long()
-        val_images = _resident(td.val.images, "val", device)
-        val_labels = _resident(td.val.labels, "val labels", device).long()
+        # whole on the device, whatever the data budget, as in the JAX
+        # package
+        images = place(td.train.images, device)
+        labels = place(td.train.labels, device).long()
+        val_images = place(td.val.images, device)
+        val_labels = place(td.val.labels, device).long()
         fns = self._make_fns(net, manager.dataset.mean, manager.dataset.std,
                              class_counts, t, device,
                              augment=getattr(args, "augment", True))
@@ -640,7 +642,6 @@ class PathNet(Method):
                                         pathnet_params_from_jax)
         split = _eval_split(manager, manager.dataset.get_task_dataset(
             ref_task))  # honours --test_set
-        return fns.eval_acc(trainable, _resident(split.images, "eval",
-                                                 device),
+        return fns.eval_acc(trainable, place(split.images, device),
                             split.labels, path,
                             batch_size=manager.args.batch_size)

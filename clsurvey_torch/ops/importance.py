@@ -27,8 +27,10 @@ no flip; a plain Python loop over batches replaces the JAX package's
 row 0, weighted 0; mode-IMM uses whole batches only. ``batch_stats`` is the
 backbone's flat dict of running statistics (``models/convert.py``); every
 pass runs the backbone with ``train=False``, so batch-norm uses those and
-``torch.func.vmap(grad)`` sees no batch statistics. Splits above the device
-data budget are not streamed yet: they raise."""
+``torch.func.vmap(grad)`` sees no batch statistics. A host split above the
+device data budget streams through chunks of whole batches
+(:func:`_accumulate_chunked`), each chunk's estimate rescaled to its share
+of the split, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -36,25 +38,39 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from clsurvey_torch.engine.train import (data_budget_bytes, place,
+                                         stream_chunk_rows)
 from clsurvey_torch.models import heads as heads_lib
 from clsurvey_torch.ops import preprocess as pp
 
 
-def _resident_u8(images_u8, device) -> torch.Tensor:
-    """The split as a uint8 tensor on ``device``; a host split above the
-    device data budget would have to stream in chunks."""
-    from clsurvey_torch.engine.train import data_budget_bytes
+def _budget_chunk_rows(images_np, batch_size: int) -> int | None:
+    """Rows a host chunk for a split over the device data budget, whole
+    batches of ``batch_size``; None where the split fits on the device
+    (``clsurvey_tpu/ops/importance.py:_budget_chunk_rows``). A split that
+    streams in training streams through its importance pass too."""
+    if images_np.nbytes <= data_budget_bytes():
+        return None
+    rows = stream_chunk_rows(images_np.nbytes // max(len(images_np), 1))
+    return max(rows // batch_size * batch_size, batch_size)
 
-    if isinstance(images_u8, np.ndarray):
-        if images_u8.nbytes > data_budget_bytes():
-            raise NotImplementedError(
-                f"importance over a split of {images_u8.nbytes / 2**20:.0f} "
-                f"MiB, above the device data budget of "
-                f"{data_budget_bytes() / 2**20:.0f} MiB: streamed passes "
-                f"are not ported to clsurvey_torch yet (ROADMAP.md, queue "
-                f"1, item 3: streaming)")
-        images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
-    return images_u8.to(device)
+
+def _accumulate_chunked(estimate_chunk, images_np, labels_np, rows: int):
+    """The split's estimate from host chunks of ``rows`` rows: each
+    chunk's estimate (a mean over the chunk) rescaled by its share of the
+    rows and summed (``clsurvey_tpu/ops/importance.py:
+    _accumulate_chunked``)."""
+    total = float(len(images_np))
+    omega = None
+    for lo in range(0, len(images_np), rows):
+        hi = min(lo + rows, len(images_np))
+        part = estimate_chunk(images_np[lo:hi], None if labels_np is None
+                              else np.asarray(labels_np)[lo:hi])
+        scale = (hi - lo) / total
+        part = {k: v * scale for k, v in part.items()}
+        omega = part if omega is None else {
+            k: omega[k] + part[k] for k in omega}
+    return omega
 
 
 def _batched_indices(n: int, batch_size: int, device):
@@ -86,8 +102,17 @@ def ewc_fisher(ctx, params, batch_stats, heads_bank, task: int,
     """Diagonal Fisher over a dataset; returns a dict like ``params``.
 
     Exactly mirrors the reference estimator: per batch, grad of the
-    sum-reduced NLL wrt params, squared, accumulated /N."""
-    images = _resident_u8(images_u8, ctx.device)
+    sum-reduced NLL wrt params, squared, accumulated /N. A host split over
+    the device data budget streams through chunks."""
+    if isinstance(images_u8, np.ndarray):
+        rows = _budget_chunk_rows(images_u8, batch_size)
+        if rows is not None:
+            return _accumulate_chunked(
+                lambda xs, ys: ewc_fisher(
+                    ctx, params, batch_stats, heads_bank, task,
+                    torch.from_numpy(np.ascontiguousarray(xs)), ys,
+                    batch_size), images_u8, labels, rows)
+    images = place(images_u8, ctx.device)
     labels = torch.as_tensor(np.asarray(labels) if not isinstance(
         labels, torch.Tensor) else labels).to(ctx.device).long()
     idx, w = _batched_indices(int(images.shape[0]), batch_size, ctx.device)
@@ -116,10 +141,19 @@ def mas_importance(ctx, params, batch_stats, heads_bank, task: int,
 
     The reference runs batch-size-1 backward passes over the whole previous
     dataset; here a vmapped grad computes ``chunk`` per-sample gradients at
-    once (the math is identical: mean of per-sample |g|)."""
+    once (the math is identical: mean of per-sample |g|). A host split
+    over the device data budget streams through chunks."""
     from torch.func import grad, vmap
 
-    images = _resident_u8(images_u8, ctx.device)
+    if isinstance(images_u8, np.ndarray):
+        rows = _budget_chunk_rows(images_u8, chunk)
+        if rows is not None:
+            return _accumulate_chunked(
+                lambda xs, _: mas_importance(
+                    ctx, params, batch_stats, heads_bank, task,
+                    torch.from_numpy(np.ascontiguousarray(xs)), chunk),
+                images_u8, None, rows)
+    images = place(images_u8, ctx.device)
     idx, w = _batched_indices(int(images.shape[0]), chunk, ctx.device)
     n_total = float(images.shape[0])
     bank = _bank_on(heads_bank, ctx.device)
@@ -164,17 +198,16 @@ def imm_mode_fisher(ctx, params, batch_stats, heads_bank, task: int,
     names = list(params)
     leaves = [params[k].detach().requires_grad_() for k in names]
     p = dict(zip(names, leaves))
-    omega = [torch.full_like(t, 1e-8) for t in leaves]
-    for s, images_u8 in enumerate(splits):
+
+    def split_fisher(images_u8, given) -> dict:
+        """sum of grad^2 over the whole batches of ``images_u8``, over
+        their number; ``given``: the batches' labels, or None to draw."""
         n_batches = int(images_u8.shape[0]) // batch_size
-        if n_batches == 0:
-            continue
-        images = _resident_u8(images_u8[: n_batches * batch_size],
-                              ctx.device)
-        given = None
-        if sampled_labels is not None:
-            given = torch.as_tensor(np.asarray(sampled_labels[s])).to(
+        images = place(images_u8, ctx.device)
+        if given is not None:
+            given = torch.as_tensor(np.asarray(given)).to(
                 ctx.device).long().view(n_batches, batch_size)
+        acc = [torch.zeros_like(t) for t in leaves]
         for b in range(n_batches):
             x = pp.preprocess(images[b * batch_size: (b + 1) * batch_size],
                               ctx.mean, ctx.std)
@@ -187,7 +220,27 @@ def imm_mode_fisher(ctx, params, batch_stats, heads_bank, task: int,
                     y = torch.multinomial(torch.softmax(logits, -1), 1,
                                           generator=generator).squeeze(1)
             grads = torch.autograd.grad(F.cross_entropy(logits, y), leaves)
-            sq = torch._foreach_mul(grads, grads)  # omega += g*g / batches
+            sq = torch._foreach_mul(grads, grads)  # acc += g*g / batches
             torch._foreach_div_(sq, float(n_batches))
-            torch._foreach_add_(omega, sq)
-    return dict(zip(names, omega))
+            torch._foreach_add_(acc, sq)
+        return dict(zip(names, acc))
+
+    omega = {k: torch.full_like(t, 1e-8) for k, t in zip(names, leaves)}
+    for s, images_u8 in enumerate(splits):
+        usable = int(images_u8.shape[0]) // batch_size * batch_size
+        if usable == 0:
+            continue
+        images_u8 = images_u8[:usable]
+        given = None if sampled_labels is None else \
+            np.asarray(sampled_labels[s])
+        rows = (_budget_chunk_rows(images_u8, batch_size)
+                if isinstance(images_u8, np.ndarray) else None)
+        if rows is None:
+            contrib = split_fisher(images_u8, given)
+        else:
+            # a chunk's Fisher is over its own batches: rescale each by
+            # chunk_batches / split_batches (the split's mean exactly)
+            contrib = _accumulate_chunked(split_fisher, images_u8, given,
+                                          rows)
+        omega = {k: omega[k] + contrib[k] for k in names}
+    return omega

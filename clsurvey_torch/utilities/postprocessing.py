@@ -1,8 +1,8 @@
-"""Result postprocessing — summary metrics + table data collection.
+"""Result postprocessing — summary metrics + plot data collection.
 
-Counterpart of the collectors of ``clsurvey_tpu/utilities/postprocessing.py``
-(numpy only), so that the port reads its own results. Consumes the eval
-result dicts written by framework/evaluate.py
+Counterpart of ``clsurvey_tpu/utilities/postprocessing.py``, so that the
+port reads and renders its own results. Consumes the eval result dicts
+written by framework/evaluate.py
 (``test_method_performances<eval_name><i>.pth``, ``i`` 0-based like the
 reference's ``get_perf_output_filename``, ref:src/utilities/utils.py:220-228;
 Joint's single ``test_method_performancesJOINT_FULL_BATCH.pth``) and
@@ -11,12 +11,11 @@ produces:
 - per-method final-model average accuracy and average forgetting (the
   survey's summary table, ref:src/utilities/main_postprocessing.py:175-187);
 - the converged-hyperparameter table (ref:main_postprocessing.py:373-409);
-- per-ref-task accuracy curves with per-family colors / linestyles /
+- per-ref-task accuracy curves for the horizontally-stacked plots
+  (utilities/plot.py, imported only by :func:`analyze_experiments` when it
+  renders: it needs matplotlib), with per-family colors / linestyles /
   markers (ref:main_postprocessing.py:83-151) and Joint as a single final
   dot with a repeated-value curve (ref:main_postprocessing.py:363-370).
-
-Rendering (``plot.py`` and ``analyze_experiments``'s figures) is not ported
-yet.
 """
 
 from __future__ import annotations
@@ -42,6 +41,21 @@ METHOD_COLORS = {
     "finetuning_rehearsal_partial_mem": "silver",
     "finetuning_rehearsal_full_mem": "dimgray",
 }
+
+# extra distinct colors when forcing all-different colors
+# (ref:main_postprocessing.py:412-422 get_colors)
+_FALLBACK_COLORS = ["C0", "C2", "C1", "C4", "C6", "C7", "C3", "C9", "C8",
+                    "C5", "teal", "olive", "maroon", "indigo", "crimson",
+                    "slategray"]
+
+
+def get_colors(n: int) -> list:
+    """n distinct colors, cycling matplotlib defaults then named colors."""
+    colors = list(_FALLBACK_COLORS)
+    while len(colors) < n:
+        colors.append(f"C{len(colors) % 10}")
+    return colors[:n]
+
 
 def _family_style(eval_name: str):
     """(linestyle, marker, markersize, single_dot) by method family
@@ -353,3 +367,59 @@ def print_exp_statistics(entries: list, table_sep: str = "\t") -> str:
     table = "\n".join(lines)
     print(table)
     return table
+
+
+def _versioned(path: str) -> str:
+    """Never overwrite a rendered figure: suffix _v2, _v3, ...
+    (ref:main_postprocessing.py:483-488)."""
+    if not os.path.exists(path):
+        return path
+    stem, ext = os.path.splitext(path)
+    n = 2
+    while os.path.exists(f"{stem}_v{n}{ext}"):
+        n += 1
+    return f"{stem}_v{n}{ext}"
+
+
+def analyze_experiments(entries: list, plot_seq_acc: bool = True,
+                        plot_seq_forgetting: bool = False,
+                        save_img_path: str | None = None,
+                        img_extention: str = "png",
+                        legend_location: str = "top",
+                        all_diff_color_force: bool = False,
+                        label_avg_plot_acc: bool = True,
+                        ylim=None, taskcount: int | None = None) -> str:
+    """Pipeline: collect -> plot -> summary (ref:main_postprocessing.py:
+    12-41). ``all_diff_color_force`` overrides family colors with a
+    distinct-per-entry palette (ref:main_postprocessing.py:479-480)."""
+    entries = [e for e in entries if e.task_count > 0]
+    if all_diff_color_force:
+        for e, c in zip(entries, get_colors(len(entries))):
+            e.color = c
+    if label_avg_plot_acc:
+        plot_entries = []
+        for e in entries:
+            import copy
+
+            pe = copy.copy(e)
+            pe.label = e.plot_label()
+            plot_entries.append(pe)
+    else:
+        plot_entries = entries
+    if save_img_path and entries:
+        from clsurvey_torch.utilities import plot as plot_lib
+
+        os.makedirs(os.path.dirname(save_img_path) or ".", exist_ok=True)
+        if plot_seq_acc:
+            plot_lib.plot_line_horizontal_sequence(
+                plot_entries,
+                _versioned(save_img_path + "_acc." + img_extention),
+                metric="acc", ylim=ylim, legend=legend_location,
+                taskcount=taskcount)
+        if plot_seq_forgetting:
+            plot_lib.plot_line_horizontal_sequence(
+                plot_entries,
+                _versioned(save_img_path + "_forgetting." + img_extention),
+                metric="forgetting", ylim=ylim, legend=legend_location,
+                taskcount=taskcount)
+    return print_exp_statistics(entries)

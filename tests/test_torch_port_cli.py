@@ -14,8 +14,8 @@ import boundary.
   a tree that both ``postprocessing`` modules read; the JAX CLI continues
   from the port's base model;
 - timing_mode on a 2-task sequence trains both tasks;
-- asking for ``cuda`` without a card raises, and what is not ported yet
-  raises ``NotImplementedError`` naming its ROADMAP item."""
+- asking for ``cuda`` without a card raises; ``--profile`` writes a
+  Chrome trace of the first task."""
 
 import os
 import subprocess
@@ -149,7 +149,8 @@ ALEX_ARGV = ["--ds_name", "synthetic_2t_4c_64px_16n", "--num_epochs", "1",
 
 
 @pytest.mark.parametrize("model,extra,match", [
-    (ARGV[0], ["--profile"], "item 4: profiling"),
+    pytest.param(ARGV[0], ["--profile"], "trace",
+                 id="tiny_CNN_cl_32_32-extra0-item 4: profiling"),
     pytest.param("alexnet", ["--method_name", "HAT"] + ALEX_ARGV, None,
                  id="alexnet-extra1-item 2: AlexNet"),
     pytest.param("alexnet", ["--method_name", "pathnet",
@@ -159,18 +160,27 @@ ALEX_ARGV = ["--ds_name", "synthetic_2t_4c_64px_16n", "--num_epochs", "1",
                  id="tiny_CNN_cl_32_32-extra3-item 2: AlexNet and the "
                     "datasets")])
 def test_later_slices_raise(two_roots, model, extra, match):
-    """Only the items of later slices raise ``NotImplementedError``, naming
-    the item: ``--profile`` (item 4). Item 2's cases, which raised before it
-    was ported, now run: HAT and PathNet on AlexNet (64 px, one epoch)
+    """The cases of items that raised before they were ported now run:
+    ``--profile`` (item 4) traces the first task into a Chrome trace under
+    ``<tr_results_root_path>/profile/<ds>_<method>/`` that names the
+    task's ops; HAT and PathNet on AlexNet (64 px, one epoch; item 2)
     through the CLI leave their AlexNet models, and ``--ds_name tiny``
     looks for its prepared bundles under the config's ``ds_root_path`` and
     says how to prepare them."""
     use, _, port_root = two_roots
     use(port_root)
     argv = [model] + ARGV[1:] + ["--device", "cpu"] + extra
-    if match == "item 4: profiling":
-        with pytest.raises(NotImplementedError, match=match):
-            tmain.cli(argv)
+    if match == "trace":
+        manager = tmain.cli(argv)
+        trace_dir = os.path.join(tconfig.load_config().tr_results_root_path,
+                                 "profile", "synthetic_2t_4c_32px_finetuning")
+        traces = [f for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        assert len(traces) == 1  # the first task only
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            text = f.read()
+        assert "aten::convolution" in text
+        assert manager.best_model_path(2, create=False)
     elif match is not None:
         with pytest.raises(FileNotFoundError, match=match):
             tmain.cli(argv)

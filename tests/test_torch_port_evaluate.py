@@ -248,8 +248,26 @@ def test_engine_evaluate_modes_match(mode):
 
 
 def test_a_split_over_the_budget_raises_naming_streaming(monkeypatch):
+    """A split over the device data budget streams through chunks (it
+    raised before streaming was ported; the name is kept): at a budget of
+    0 each chunk is one batch of 16 rows, the last one short, and the
+    counters equal the JAX package's resident eval of the same split."""
+    spec = jreg.parse_model_name("", MODEL, (32, 32))
+    model = jio.to_host(jreg.init_model_state(
+        spec, jax.random.PRNGKey(5), max_tasks=2, classes_per_task=4,
+        class_counts=[4, 3]))
+    rng = np.random.default_rng(9)
+    images = rng.integers(0, 256, (40, 32, 32, 3), dtype=np.uint8)
+    labels = rng.integers(0, 3, (40,)).astype(np.int32)
+    eng_j, eng_t = _engines()
+    tr = {"params": model["params"],
+          "heads": {k: model["heads"][k] for k in ("kernel", "bias")}}
+    want = eng_j.evaluate(jax.tree_util.tree_map(jnp.asarray, tr), {},
+                          jnp.asarray(images), jnp.asarray(labels), 16)
     monkeypatch.setenv("CLSURVEY_DATA_BUDGET_MB", "0")
-    with pytest.raises(NotImplementedError, match="item 3: streaming"):
-        tevaluate._evaluate_split(
-            _engines()[1], None, {}, np.zeros((4, 32, 32, 3), np.uint8),
-            np.zeros(4, np.int32), 4)
+    got = tevaluate._evaluate_split(
+        eng_t, ttrain.trainable_from_host(tr, "cpu", requires_grad=False),
+        {}, images, labels, 16)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])

@@ -453,3 +453,17 @@ def test_the_jax_package_evaluates_a_port_trained_pathnet_sequence(
     jmain(jcommon.RunArgs(method_name="pathnet", **TRAIN))
     assert "ATTEMPT" not in capsys.readouterr().out
     _same_results(_results(tmp_path / "jax"), want)
+
+
+def test_splits_are_placed_whole_at_any_budget(restore_env, tmp_path,
+                                               monkeypatch):
+    """PathNet places its splits on the device whole, whatever the data
+    budget, as the JAX package does: at a budget of 0 the CLI trains a
+    task and evaluates it."""
+    monkeypatch.setenv("CLSURVEY_DATA_BUDGET_MB", "0")
+    _use(tmp_path)
+    manager = tmain.cli(ARGV + ["--max_task_count", "1"])
+    assert [len(r["seq_res"]) for r in manager.extras["eval_results"]] \
+        == [1]
+    model = tio.load(manager.best_model_path(1, create=False))
+    assert model["meta"]["pathnet"]
