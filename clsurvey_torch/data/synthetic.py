@@ -13,6 +13,7 @@ structure (each class is a distinct smooth color/gradient pattern + noise)."""
 from __future__ import annotations
 
 import os
+import tempfile
 
 import numpy as np
 
@@ -207,11 +208,15 @@ class SyntheticSequence(TaskSequence):
             return td
         td = self._generate(task)
         if disk is not None:
-            tmp = disk + ".tmp.npz"
-            np.savez(tmp, tr_x=td.train.images, tr_y=td.train.labels,
-                     va_x=td.val.images, va_y=td.val.labels,
-                     te_x=td.test.images, te_y=td.test.labels,
-                     classes=np.asarray(td.classes))
+            # a temporary file of this process's own: ranks of a data-
+            # parallel run (and concurrent runs) write the same task at once
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(disk),
+                                       suffix=".tmp.npz")
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, tr_x=td.train.images, tr_y=td.train.labels,
+                         va_x=td.val.images, va_y=td.val.labels,
+                         te_x=td.test.images, te_y=td.test.labels,
+                         classes=np.asarray(td.classes))
             os.replace(tmp, disk)  # atomic: concurrent runs see all/none
         self._cache_put(task, td)
         return td

@@ -38,7 +38,23 @@ the host instead (``Engine.train_epoch_chunked`` / ``evaluate_chunked``,
 ``train_task`` decides per split): a thread gathers each chunk of the
 epoch's permutation into a pinned buffer (``utils/rowgather.py``) and copies
 it to the card on a side stream while the card trains on the chunk before
-(``ChunkFeed``)."""
+(``ChunkFeed``).
+
+Data parallel (``parallel/mesh.py``, the context's ``mesh``): every rank
+runs this program on the whole split. Each step draws the global batch's
+flips and dropout masks, and the rule its own draws, exactly as one device
+does; the step then keeps its rank's rows of the batch and of the draws.
+CE and accuracy are local sums over the global count, and the gradient is
+all-reduced in one flat buffer right after the base loss (inside
+:meth:`Engine._base_loss_and_grads`, so GEM projects the global one),
+before the penalty, transform, weight decay, freeze, momentum and update
+hooks, which act on replicated state once. ``post_step`` gets the global
+gradient and the global batch's raw rows. The epoch's metric sums are
+all-reduced once an epoch, eval's per-class counters once an evaluation.
+Train batches round down to a multiple of the ranks, eval batches up with
+padded rows of weight 0. ``train_task`` broadcasts the state at its start,
+takes every decision from all-reduced numbers, and writes and logs from
+the writer alone. Without a process group none of this runs."""
 
 from __future__ import annotations
 
@@ -46,7 +62,7 @@ import functools
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
@@ -60,6 +76,7 @@ from clsurvey_torch.models.convert import (
     batch_stats_from_jax, batch_stats_to_jax, params_from_jax, params_to_jax)
 from clsurvey_torch.models.registry import ModelSpec
 from clsurvey_torch.ops import preprocess as pp
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, orbax_io, rng as rng_lib, timing
 from clsurvey_torch.utils.paths import (
@@ -150,6 +167,7 @@ class EngineContext:
     # L1 weight decay: decay term wd*sign(theta) instead of wd*theta
     # (MAS extra, ref:src/methods/MAS/train_MAS.py:72-76 L1_decay flag)
     l1_decay: bool = False
+    mesh: mesh_lib.Mesh = field(default_factory=mesh_lib.Mesh)
 
     def bank(self, trainable: Any) -> dict:
         return {"kernel": trainable["heads"]["kernel"],
@@ -159,14 +177,15 @@ class EngineContext:
     def forward_feats(self, params, batch_stats, x, train: bool,
                       dropout_masks=None):
         """-> (features, batch_stats). ``train=True`` normalizes with the
-        batch's statistics and returns the updated running ones, and drops
-        units under ``dropout_masks``; ``train=False`` (eval, teachers,
-        importance passes) uses the running statistics and no dropout."""
+        statistics of the global batch over the context's mesh and returns
+        the updated running ones, and drops units under ``dropout_masks``;
+        ``train=False`` (eval, teachers, importance passes) uses the
+        running statistics and no dropout."""
         if train:
             return functional_call(
                 self.backbone, params, (x,),
                 {"batch_stats": batch_stats, "train": True,
-                 "dropout_masks": dropout_masks})
+                 "dropout_masks": dropout_masks, "mesh": self.mesh})
         return functional_call(self.backbone, params, (x,),
                                {"batch_stats": batch_stats}), batch_stats
 
@@ -203,13 +222,18 @@ class EngineContext:
 
 def make_context(spec: ModelSpec, task: int, n_tasks: int,
                  class_counts, mean, std, update_rule: UpdateRule,
-                 device="cuda", **kwargs) -> EngineContext:
+                 device="cuda", mesh: mesh_lib.Mesh | None = None,
+                 **kwargs) -> EngineContext:
+    """``mesh`` defaults to the installed one (``get_mesh()``), as the
+    JAX package's does."""
     device = device_lib.resolve(device)
+    mesh = mesh if mesh is not None else mesh_lib.get_mesh(device)
+    backbone = spec.make_backbone().to(device)
     return EngineContext(
-        spec=spec, backbone=spec.make_backbone().to(device), task=task,
+        spec=spec, backbone=backbone, task=task,
         n_tasks=n_tasks, class_counts=np.asarray(class_counts, np.int32),
         mean=tuple(mean), std=tuple(std), update_rule=update_rule,
-        device=device, **kwargs)
+        device=device, mesh=mesh, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -225,32 +249,43 @@ class Engine:
 
     def _base_loss_and_grads(self, trainable, batch_stats, batch, mstate,
                              dropout_masks=None, gen=None):
+        """Loss, gradient, new batch statistics and metrics of the rank's
+        rows ``batch``: CE and accuracy as the rank's share of the global
+        batch's means, the rule's extra term as its own share, and the
+        gradient all-reduced (the global batch's)."""
         ctx = self.ctx
         x, y = batch
+        scale = ctx.mesh.batch_scale
         feats, new_bs = ctx.forward_feats(trainable["params"], batch_stats,
                                           x, True, dropout_masks)
         logits = ctx.task_logits(trainable, feats)
-        ce = F.cross_entropy(logits, y)
+        ce = mesh_lib.share(F.cross_entropy(logits, y), scale)
         extra = ctx.update_rule.extra_loss(ctx, trainable, feats, batch,
                                            mstate, batch_stats=batch_stats,
                                            gen=gen)
         loss = ce + extra
-        grads = torch.autograd.grad(loss, tree_leaves(trainable))
+        grads = mesh_lib.global_grads(loss, tree_leaves(trainable),
+                                      ctx.mesh)
         with torch.no_grad():
-            acc = (logits.argmax(-1) == y).to(torch.float32).mean()
-        return (loss.detach(), tree_unflatten(trainable, list(grads)),
+            acc = mesh_lib.share(
+                (logits.argmax(-1) == y).to(torch.float32).mean(), scale)
+        return (loss.detach(), tree_unflatten(trainable, grads),
                 new_bs, {"loss": ce.detach(), "acc": acc})
 
     def _train_step(self, state: TrainState, x_u8, y, lr: float,
                     flip_mask=None, dropout_masks=None, gen=None):
-        """``gen`` is the epoch's device generator: the rule's hooks draw
-        their own randomness from it (rehearsal: exemplar rows, flip and
-        dropout masks of the replayed rows), after the step's flip and
+        """One step on the global batch ``x_u8``, ``y`` with its global
+        ``flip_mask`` and ``dropout_masks``, of which the rank keeps its
+        rows. ``gen`` is the epoch's device generator: the rule's hooks
+        draw their own randomness from it (rehearsal: exemplar rows, flip
+        and dropout masks of the replayed rows), after the step's flip and
         dropout masks."""
         ctx = self.ctx
         rule = ctx.update_rule
-        x = ctx.preprocess(x_u8, flip_mask)
-        batch = (x, y)
+        rows = functools.partial(mesh_lib.constrain_batch, mesh=ctx.mesh)
+        x = ctx.preprocess(rows(x_u8), rows(flip_mask))
+        dropout_masks = rows(dropout_masks)
+        batch = (x, rows(y))
 
         # a rule may take over the gradient computation (GEM's projection
         # needs per-memory gradients); it is handed the base computation
@@ -301,7 +336,7 @@ class Engine:
             new_trainable = tree_unflatten(state.trainable, new_leaves)
             new_mstate = rule.post_step(ctx, state.mstate, state.trainable,
                                         new_trainable, raw_grads, batch,
-                                        raw_images=x_u8)
+                                        raw_images=x_u8, raw_labels=y)
         return TrainState(new_trainable, new_bs, new_momentum,
                           new_mstate), metrics
 
@@ -314,10 +349,11 @@ class Engine:
         (a dropout model therefore needs ``gen``); the rule's hooks draw
         from it too. Metrics are means over the batches of the per-batch
         CE, accuracy and whatever else the rule reports (GEM: the share of
-        projected steps)."""
+        projected steps). The batch rounds down to a multiple of the
+        ranks."""
         ctx = self.ctx
         n = int(perm.shape[0])
-        batch_size = min(int(batch_size), n)
+        batch_size = mesh_lib.round_batch(batch_size, n, ctx.mesh.size)
         steps = n // batch_size
         if steps == 0:
             raise ValueError("an empty permutation cannot fill one batch")
@@ -326,7 +362,15 @@ class Engine:
                    for idx in perm.view(steps, batch_size))
         per_step: dict = {}
         state = self._train_batches(state, batches, gen, lr, per_step)
-        return state, {k: torch.stack(v).mean() for k, v in per_step.items()}
+        return state, self._epoch_metrics(per_step)
+
+    def _epoch_metrics(self, per_step: dict) -> dict:
+        """Means over the steps; CE and accuracy (the ranks' shares) summed
+        over the ranks in one all-reduce. A rule's own metrics are equal on
+        every rank (GEM's projected share) and stay as they are."""
+        out = {k: torch.stack(v).mean() for k, v in per_step.items()}
+        mesh_lib.all_reduce_sum([out["loss"], out["acc"]], self.ctx.mesh)
+        return out
 
     def _train_batches(self, state: TrainState, batches, gen, lr: float,
                        per_step: dict) -> TrainState:
@@ -364,7 +408,7 @@ class Engine:
         the split with the rows :func:`chunk_plan` gives."""
         perm = np.asarray(perm, np.int64)
         batch_size, chunk_rows = chunk_plan(len(perm), batch_size,
-                                            chunk_rows)
+                                            chunk_rows, self.ctx.mesh.size)
         n_chunks = -(-len(perm) // chunk_rows)
         use = n_chunks * chunk_rows
         if use > len(perm):  # every chunk of one shape, every row seen
@@ -379,7 +423,7 @@ class Engine:
             state, _streamed_batches(feed, images_np, labels, perm,
                                      batch_size, n_chunks),
             gen, lr, per_step)
-        return state, {k: torch.stack(v).mean() for k, v in per_step.items()}
+        return state, self._epoch_metrics(per_step)
 
     def evaluate(self, trainable, batch_stats, images, labels,
                  batch_size: int, predict: str | Callable = "task",
@@ -393,10 +437,13 @@ class Engine:
         ``(ctx, trainable, feats) -> logits``.
         ``target_labels``: override labels (e.g. offset labels for shared
         eval). ``n_counter_classes``: length of the per-class counters
-        (default: the head width, times ``n_tasks`` for "shared")."""
+        (default: the head width, times ``n_tasks`` for "shared").
+        Under a group the batch rounds up to a multiple of the ranks, each
+        rank counts its rows of each batch (padded rows weigh 0), and the
+        counters are all-reduced once."""
         ctx = self.ctx
         n = int(images.shape[0])
-        batch_size = min(int(batch_size), n)
+        batch_size = mesh_lib.round_eval_batch(batch_size, n, ctx.mesh.size)
         y_all = torch.as_tensor(labels if target_labels is None
                                 else target_labels).to(ctx.device).long()
         if n_counter_classes is None:
@@ -411,18 +458,15 @@ class Engine:
             logits_of = lambda feats: ctx.shared_logits(trainable, feats)
         else:
             raise ValueError(predict)
-        pcc = torch.zeros(n_counter_classes, device=ctx.device)
-        pct = torch.zeros(n_counter_classes, device=ctx.device)
-        with torch.no_grad():
-            for lo in range(0, n, batch_size):
-                x = pp.preprocess(images[lo: lo + batch_size], ctx.mean,
-                                  ctx.std)
-                y = y_all[lo: lo + batch_size]
-                feats, _ = ctx.forward_feats(trainable["params"],
-                                             batch_stats, x, False)
-                hit = (logits_of(feats).argmax(-1) == y).to(torch.float32)
-                pcc.index_add_(0, y, hit)
-                pct.index_add_(0, y, torch.ones_like(hit))
+
+        def logits_u8(x_u8):
+            x = pp.preprocess(x_u8, ctx.mean, ctx.std)
+            feats, _ = ctx.forward_feats(trainable["params"], batch_stats,
+                                         x, False)
+            return logits_of(feats)
+
+        pcc, pct = mesh_lib.count_hits(images, y_all, batch_size, logits_u8,
+                                       n_counter_classes, ctx.mesh)
         per_class_c, per_class_t = pcc.cpu().numpy(), pct.cpu().numpy()
         acc = float(per_class_c.sum()) / max(float(per_class_t.sum()), 1.0)
         return acc, per_class_c, per_class_t
@@ -470,12 +514,14 @@ def _streamed_batches(feed: "ChunkFeed", images_np, labels: torch.Tensor,
             feed.consumed(c)  # the chunk's steps are all dispatched
 
 
-def chunk_plan(n: int, batch_size: int, chunk_rows: int) -> tuple[int, int]:
+def chunk_plan(n: int, batch_size: int, chunk_rows: int,
+               nd: int = 1) -> tuple[int, int]:
     """(batch size, rows a chunk) of a streamed epoch over ``n`` rows: the
-    batch at most ``n``, the chunk rounded down to whole batches (at least
-    one) and at most the batch-rounded split, as the JAX package rounds
-    them (``clsurvey_tpu/engine/train.py:338-346``)."""
-    batch_size = min(int(batch_size), int(n))
+    batch at most ``n`` and rounded down to a multiple of the ``nd``
+    ranks, the chunk rounded down to whole batches (at least one) and at
+    most the batch-rounded split, as the JAX package rounds them
+    (``clsurvey_tpu/engine/train.py:338-346``)."""
+    batch_size = mesh_lib.round_batch(batch_size, n, nd)
     if batch_size <= 0:
         raise ValueError("an empty permutation cannot fill one batch")
     chunk_rows = max(int(chunk_rows) // batch_size * batch_size, batch_size)
@@ -674,8 +720,14 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
 
     ``perms(epoch)``, when given, supplies the epoch's permutation of the
     train split (tests hand in the JAX package's); otherwise it comes from
-    a generator seeded with (job.seed, epoch)."""
+    a generator seeded with (job.seed, epoch).
+
+    Under a process group every rank runs this loop on the whole split:
+    the state is broadcast from rank 0 at the start (the JAX package's
+    replicated ``device_put``), every decision comes from all-reduced
+    numbers, and the writer alone writes the files and the log lines."""
     ctx = engine.ctx
+    log = mesh_lib.writer_log(log, ctx.mesh)
     os.makedirs(job.exp_dir, exist_ok=True)
     ckpt_path = os.path.join(job.exp_dir, EPOCH_CKPT_FILENAME)
     best_path = os.path.join(job.exp_dir, BEST_MODEL_FILENAME)
@@ -697,7 +749,8 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
             f"budget {budget / 2**20:.0f} MiB): "
             f"{chunk_rows}-row chunks")
         feed = ChunkFeed(train_np.shape[1:], chunk_plan(
-            n_train, job.batch_size, chunk_rows)[1], ctx.device)
+            n_train, job.batch_size, chunk_rows, ctx.mesh.size)[1],
+            ctx.device)
     else:
         train_images = place(train_np, ctx.device)
         train_labels = place(train_labels_np, ctx.device).long()
@@ -720,7 +773,7 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
         val_beat_counts = ck["val_beat_counts"]
         if io.exists(best_path):
             best_model = io.load(best_path)
-        if os.path.isfile(history_path):
+        if io.exists(history_path):
             with open(history_path) as f:
                 history = json.load(f)
             # the history file is written every epoch but the state ckpt
@@ -730,6 +783,8 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
             rule_history = {k: v[:start_epoch] for k, v in
                             history.get("rule_metrics", {}).items()}
         log(f"=> resumed epoch {start_epoch} lr={lr:g} best={best_acc:.4f}")
+    mesh_lib.replicated([state.trainable, state.batch_stats, state.momentum,
+                         state.mstate], ctx.mesh)
 
     # host snapshot of the task-start model: the fallback for runs that
     # never improve (a NaN-aborted final state must not chain into the next
@@ -797,10 +852,9 @@ def train_task(engine: Engine, job: TrainJob, state: TrainState,
         for k, v in rule_metrics.items():
             rule_history.setdefault(k, []).append(v)
         if job.save_models_mode:
-            with open(history_path, "w") as f:
-                json.dump({"error_history": error_history, "lr": lr,
-                           "train_loss": train_loss,
-                           "rule_metrics": rule_history}, f)
+            io.save_json({"error_history": error_history, "lr": lr,
+                          "train_loss": train_loss,
+                          "rule_metrics": rule_history}, history_path)
 
         if not np.isfinite(train_loss) or train_loss > DIVERGENCE_LOSS_BOUND:
             # NaN guard aborts training (ref:src/methods/SI/train_SI.py:242);

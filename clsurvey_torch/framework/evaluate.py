@@ -12,7 +12,9 @@ per-ref-task result dicts
 to ``test_method_performances<method><i>.pth`` — the exact artifact shape the
 reference's postprocessing/plot pipeline consumes
 (ref:src/framework/eval.py:176-185). A split above the device data budget
-streams through the engine's ``evaluate_chunked``."""
+streams through the engine's ``evaluate_chunked``. Under a process group
+every rank evaluates its rows of every batch, the counters are all-reduced
+(``Engine.evaluate``), and the writer writes the result files."""
 
 from __future__ import annotations
 
@@ -150,7 +152,7 @@ def eval_all_models_all_tasks(args, manager, model_paths: list,
             f"{manager.method.eval_name}{ref_task - 1}.pth")
         if (not getattr(args, "test_overwrite_mode", False)
                 and not getattr(args, "debug", False)
-                and os.path.exists(out_path)):
+                and io.exists(out_path)):
             # safety check (ref:src/framework/eval.py:161-164)
             print("EVAL already done, can only rerun in overwrite mode")
             break

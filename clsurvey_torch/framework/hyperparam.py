@@ -23,9 +23,19 @@ import os
 import shutil
 import time
 
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import io, paths as paths_lib
 from clsurvey_torch.utils.paths import (
     BEST_MODEL_FILENAME, HYPERPARAMS_CKPT_FILENAME, TASK_TRAINING_DIRNAME)
+
+
+def _clear_attempt(exp_dir: str) -> None:
+    """Remove a failed attempt's files and directories from ``exp_dir``,
+    all but the framework's checkpoint."""
+    for fn in os.listdir(exp_dir):
+        if fn != HYPERPARAMS_CKPT_FILENAME:
+            path = os.path.join(exp_dir, fn)
+            (os.unlink if os.path.isfile(path) else shutil.rmtree)(path)
 
 
 class HyperparameterFramework:
@@ -93,9 +103,13 @@ class HyperparameterFramework:
     def stabilityDecay(self, args, manager, finetune_lr, finetune_acc):
         manager.extras["lr"] = finetune_lr
         exp_dir = os.path.join(manager.task_dir(), TASK_TRAINING_DIRNAME)
-        if os.path.islink(exp_dir):  # leftover Phase-1 symlink from baselines
-            os.unlink(exp_dir)
-        os.makedirs(exp_dir, exist_ok=True)
+
+        def make_dir():
+            if os.path.islink(exp_dir):  # leftover Phase-1 symlink
+                os.unlink(exp_dir)
+            os.makedirs(exp_dir, exist_ok=True)
+
+        mesh_lib.writer_does(make_dir)
         manager.extras["heuristic_exp_dir"] = exp_dir
 
         if hasattr(self.method, "train_init"):
@@ -139,11 +153,7 @@ class HyperparameterFramework:
                 self.attempts += 1
                 if self.attempts < max_attempts:
                     # remove failed attempt's artifacts, keep the dir
-                    for fn in os.listdir(exp_dir):
-                        if fn != HYPERPARAMS_CKPT_FILENAME:
-                            path = os.path.join(exp_dir, fn)
-                            (os.unlink if os.path.isfile(path)
-                             else shutil.rmtree)(path)
+                    mesh_lib.writer_does(_clear_attempt, exp_dir)
                 else:
                     # NOTE the retained model trained with the PRE-decay
                     # hyperparams, but the decayed values are what gets

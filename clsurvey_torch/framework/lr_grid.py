@@ -5,7 +5,9 @@ x ``finetune_iterations``: reseed per iteration, call ``method.grid_train``,
 track the best iteration-average accuracy, checkpoint processed lrs for
 resume, apply the storage policy (all / only_keep_best / keep_none), then
 ``method.grid_poststep`` links TASK_TRAINING to the winning run.
-Counterpart of ``clsurvey_tpu/framework/lr_grid.py``."""
+Counterpart of ``clsurvey_tpu/framework/lr_grid.py``. Under a process
+group the writer alone appends to the log file and removes or links
+directories, and every rank waits for it (``parallel/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import os
 import shutil
 import time
 
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import io, paths as paths_lib, rng as rng_lib
 from clsurvey_torch.utils.paths import (
     GRID_CKPT_FILENAME, LR_GRID_DIRNAME, TASK_TRAINING_DIRNAME,
@@ -43,9 +46,18 @@ def lr_grid_single_task(args, manager, save_models_mode: str = "keep_none"):
     logfile = os.path.join(log_dir, "finetune_grid.log")
 
     def log_line(msg):
+        if not mesh_lib.is_writer():
+            return
         print(msg)
         with open(logfile, "a") as f:
             f.write(msg + "\n")
+
+    def remove(dirs):
+        def rmtree_all():
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+
+        mesh_lib.writer_does(rmtree_all)
 
     # resume (ref:lr_grid_train.py:30-37)
     processed = {}
@@ -110,17 +122,14 @@ def lr_grid_single_task(args, manager, save_models_mode: str = "keep_none"):
         if avg_acc > best_acc:
             best_lr, best_acc = lr, avg_acc
             if store_policy.only_keep_best:
-                for d in best_batch_dirs:
-                    shutil.rmtree(d, ignore_errors=True)
+                remove(best_batch_dirs)
             best_batch_dirs = iteration_dirs
             best_dir = best_it_dir
             log_line(f"UPDATE best lr = {best_lr:g} acc = {best_acc:.4f}")
         elif store_policy.only_keep_best:
-            for d in iteration_dirs:
-                shutil.rmtree(d, ignore_errors=True)
+            remove(iteration_dirs)
         if store_policy.keep_none:
-            for d in iteration_dirs:
-                shutil.rmtree(d, ignore_errors=True)
+            remove(iteration_dirs)
 
     manager.extras["best_exp_grid_node_dirname"] = best_dir
     log_line(f"FINETUNE DONE: best_lr={best_lr}, best_acc={best_acc:.4f}")
@@ -140,11 +149,15 @@ def grid_poststep_symlink(args, manager):
     best = manager.extras.get("best_exp_grid_node_dirname")
     if best is None:
         return
-    if os.path.islink(exp_dir):
-        os.unlink(exp_dir)
-    elif os.path.isdir(exp_dir):
-        shutil.rmtree(exp_dir)
-    rel = os.path.join(LR_GRID_DIRNAME, os.path.basename(best))
-    os.symlink(rel, exp_dir)
+
+    def link():
+        if os.path.islink(exp_dir):
+            os.unlink(exp_dir)
+        elif os.path.isdir(exp_dir):
+            shutil.rmtree(exp_dir)
+        os.symlink(os.path.join(LR_GRID_DIRNAME, os.path.basename(best)),
+                   exp_dir)
+
+    mesh_lib.writer_does(link)
     manager.previous_task_model_path = os.path.join(
         best, BEST_MODEL_FILENAME)

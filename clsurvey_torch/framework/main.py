@@ -9,6 +9,15 @@ afterwards. ``--profile`` traces the first task with ``torch.profiler``
 (the CPU, and the card's kernels on ``cuda``) into a Chrome trace under
 ``<tr_results_root_path>/profile/<ds_name>_<method_name>/``.
 
+Data parallel: under ``torchrun`` the run is data parallel over its ranks
+(``parallel/mesh.py``), with no flag, as the JAX CLI is over its mesh.
+Every rank runs the whole program; rank 0 alone writes the files, prints
+and profiles (the other ranks' standard output goes to ``os.devnull``):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m clsurvey_torch.framework.main tiny_CNN_cl_32_32 \
+        --method_name finetuning --ds_name synthetic_2t_4c_32px --device cpu
+
     python -m clsurvey_torch.framework.main small_VGG9_cl_128_128 \
         --method_name SI --ds_name synthetic_4t_20c_64px_400n \
         --runmode first_task_basemodel_dump --num_epochs 10 \
@@ -21,7 +30,9 @@ afterwards. ``--profile`` traces the first task with ``torch.profiler``
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
 import time
 import traceback
 
@@ -30,6 +41,7 @@ from clsurvey_torch.data import registry as data_lib
 from clsurvey_torch.framework import hyperparam, lr_grid
 from clsurvey_torch.framework.common import Manager, RunArgs
 from clsurvey_torch.models import registry as models_lib
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, paths as paths_lib, rng as rng_lib, timing
 from clsurvey_torch.utils.config import load_config
@@ -125,6 +137,9 @@ def _start_profiler(device):
 
 
 def main(args: RunArgs):
+    # under torchrun: join the process group once, before anything else
+    if not mesh_lib.is_writer(mesh_lib.get_mesh(args.device)):
+        sys.stdout = open(os.devnull, "w")
     rng_lib.set_random(args.seed)
     cfg = load_config()
     device = device_lib.resolve(args.device)  # no card for "cuda": raise
@@ -156,9 +171,13 @@ def main(args: RunArgs):
         import shutil
 
         parent = os.path.dirname(manager.task_dir(1))
-        if os.path.isdir(parent):
-            shutil.rmtree(parent)
-            print("=====> CLEANING UP EXP: starting from scratch <=====")
+
+        def clean():
+            if os.path.isdir(parent):
+                shutil.rmtree(parent)
+                print("=====> CLEANING UP EXP: starting from scratch <=====")
+
+        mesh_lib.writer_does(clean)
 
     if args.runmode == "first_task_basemodel_dump":
         overwrite_dump_args(args, manager)
@@ -195,7 +214,8 @@ def main(args: RunArgs):
                               args.max_task_count + 1):
         print("\n" + "*" * 70 + f"\nTRAINING Task {task_counter}\n" + "*" * 70)
         manager.set_dataset(task_counter)
-        if args.profile and task_counter == args.starting_task_count:
+        if args.profile and task_counter == args.starting_task_count \
+                and mesh_lib.is_writer():
             trace_dir = os.path.join(cfg.tr_results_root_path, "profile",
                                      f"{args.ds_name}_{args.method_name}")
             os.makedirs(trace_dir, exist_ok=True)
@@ -238,6 +258,14 @@ def main(args: RunArgs):
         from clsurvey_torch.framework import evaluate as test_lib
         manager.extras["eval_results"] = test_lib.main(
             args, manager, ds_paths, model_paths)
+    mesh = mesh_lib.get_mesh()
+    if mesh.distributed:
+        # every rank: the files it wrote, its kernels' launches and batches
+        from clsurvey_torch.ops import _kernels
+        print(f"[rank {mesh.rank}/{mesh.size}] " + json.dumps({
+            "writes": io.WRITES["files"], "launches": _kernels.LAUNCHES,
+            "batches": {k: sorted(v) for k, v in _kernels.BATCHES.items()}}),
+            file=sys.stderr, flush=True)
     return manager
 
 
@@ -313,3 +341,4 @@ def cli(argv=None):
 
 if __name__ == "__main__":
     cli()
+    mesh_lib.shutdown()

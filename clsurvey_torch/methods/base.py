@@ -17,6 +17,24 @@ hand-written training engines (ref:src/methods/method.py:81-224):
    framework probes (grid_prestep / grid_train / grid_poststep / prestep /
    train / poststep / init_next_task / get_output / inference_eval,
    ref:src/methods/method.py:128-224), driven by framework/ orchestration.
+
+Data parallel (``parallel/mesh.py``): under a process group each rank's
+hooks see its own rows of the step's batch, and the loss they return is
+the rank's SHARE of the global loss, which the ranks' gradients then sum:
+
+- a term that is a mean over the batch is a local sum over the global
+  count: the local mean times the shard's ``mean_scale``
+  (``ctx.mesh.batch_scale`` for the step's own batch, ``ctx.mesh.shard(b)``
+  for rows a rule draws itself, which it shards too);
+- a term that does not depend on the batch is counted once: scaled by
+  ``1/N`` on every rank (or added after the all-reduce), not N times.
+
+``compute_grads`` gets a ``base`` whose gradient is already all-reduced;
+``penalty_grads``, ``transform_grads``, ``mask_updates`` and ``post_step``
+act on replicated state and the global gradient, and ``post_step`` gets
+the global batch's raw rows and labels. A rule's own metrics must be equal
+on every rank. Without a group the scales are 1 and every hook computes
+what it computed on one device.
 """
 
 from __future__ import annotations
@@ -88,11 +106,12 @@ class UpdateRule:
 
     def post_step(self, ctx: Any, mstate: Any, old_trainable: Any,
                   new_trainable: Any, raw_grads: Any, batch: Any,
-                  raw_images: Any = None) -> Any:
+                  raw_images: Any = None, raw_labels: Any = None) -> Any:
         """Per-step state update with the *unregularized* grads (SI path
-        integral), the preprocessed batch, and the raw uint8 images
-        (rehearsal ring buffers store un-augmented samples, the analog of
-        the reference's path-based memory)."""
+        integral), the rank's preprocessed rows ``batch``, and the global
+        batch's raw uint8 images and labels (rehearsal ring buffers store
+        un-augmented samples, the analog of the reference's path-based
+        memory; every rank's memory stays equal)."""
         return mstate
 
     def mask_updates(self, ctx: Any, updates: Any, mstate: Any) -> Any:

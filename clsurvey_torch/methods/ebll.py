@@ -49,6 +49,7 @@ from clsurvey_torch.methods.lwf import LwFRule
 from clsurvey_torch.models import heads as heads_lib
 from clsurvey_torch.models.convert import batch_stats_from_jax, params_from_jax
 from clsurvey_torch.ops import preprocess as pp
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, rng as rng_lib
 
@@ -199,8 +200,16 @@ class EBLLRule(LwFRule):
 
     def extra_loss(self, ctx, trainable, feats, batch, mstate,
                    batch_stats=None, gen=None):
+        """Distillation plus the code term: both means over the batch (the
+        code term over its rows and code units), so the rank's share is
+        its rows' value times ``ctx.mesh.batch_scale``."""
         if ctx.n_tasks - 1 == 0:
             return 0.0
+        return mesh_lib.share(
+            self._terms(ctx, trainable, feats, batch, mstate, batch_stats),
+            ctx.mesh.batch_scale)
+
+    def _terms(self, ctx, trainable, feats, batch, mstate, batch_stats):
         x, _ = batch
         teacher = mstate["teacher"]
         if not mstate["encoders"]:
@@ -287,8 +296,11 @@ class EBLL(Method):
                 best_acc, best_ae = acc, ae
         if best_acc < 0.40:
             manager.log(f"[WARNING] AE grid max acc = {best_acc:.3f}")
-        io.save(best_ae, os.path.join(parent, "best_model.pth.tar"))
-        manager.extras["ebll_new_encoder"] = best_ae
+        best_path = os.path.join(parent, "best_model.pth.tar")
+        io.save(best_ae, best_path)
+        # the writer's file: under a process group every rank trains the
+        # grid whole, and all of them then continue with the writer's pick
+        manager.extras["ebll_new_encoder"] = io.load(best_path)
 
     def train(self, args, manager, hyperparams):
         prev_model = io.load(manager.previous_task_model_path)

@@ -41,10 +41,22 @@ masks are drawn from the epoch's generator, like the flips
 
 On disk the weights keep the JAX package's flat HAT layout
 (``models/convert.py``), so either package evaluates or continues the
-other's models and epoch checkpoints."""
+other's models and epoch checkpoints.
+
+Data parallel (``parallel/mesh.py``, the engine's ``mesh``): each step's
+flips and keep-masks are drawn for the global batch and each rank runs its
+rows. CE and accuracy are the rank's shares of the global means; the
+sparsity term depends on the gates, not the batch, so each rank counts
+``1/N`` of it. The raw gradient is all-reduced (one flat buffer) before
+weight decay, the cosh compensation, the clipping and ``mask_back``. Train
+batches round down to a multiple of the ranks, and so do eval batches, the
+last one padded with rows of weight 0 (``clsurvey_tpu/methods/hat.py:
+468-518``); the hit count is all-reduced. ``hat_train_task`` broadcasts the
+weights at its start and writes and logs from the writer."""
 
 from __future__ import annotations
 
+import functools
 import os
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -70,6 +82,7 @@ from clsurvey_torch.models.convert import (
 from clsurvey_torch.ops import preprocess as pp
 from clsurvey_torch.ops.conv import conv2d
 from clsurvey_torch.ops.pool import pool2x2
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, rng as rng_lib
 from clsurvey_torch.utils.paths import BEST_MODEL_FILENAME, EPOCH_CKPT_FILENAME
@@ -381,7 +394,7 @@ class HATEngine:
     def __init__(self, net: HATVGG, spec, task: int, class_counts, mean, std,
                  smax: float, mask_pre, mask_back, momentum: float = 0.9,
                  weight_decay: float = 0.0, finetune_mode: bool = False,
-                 augment: bool = True, device="cuda"):
+                 augment: bool = True, device="cuda", mesh=None):
         self.net = net
         self.spec = spec
         self.task = task
@@ -395,6 +408,8 @@ class HATEngine:
         self.finetune_mode = finetune_mode
         self.augment = augment
         self.device = device_lib.resolve(device)
+        self.mesh = mesh if mesh is not None else mesh_lib.get_mesh(
+            self.device)
 
     def bank(self, trainable) -> dict:
         return {"kernel": trainable["heads"]["kernel"],
@@ -420,7 +435,14 @@ class HATEngine:
         outside ``finetune_mode`` the embeddings' cosh compensation
         ``(smax/s) (cosh(clip(s p, +-50)) + 1) / (cosh(p) + 1)`` and every
         params leaf clipped to norm 1e4; ``mask_back`` at task > 0 in both
-        modes; only the current task's head. Returns (grads, metrics)."""
+        modes; only the current task's head. Returns (grads, metrics).
+        ``x_u8``, ``y`` and the draws are the global batch's; the rank
+        runs its rows, and the raw gradient is all-reduced before any of
+        that processing."""
+        rows = functools.partial(mesh_lib.constrain_batch, mesh=self.mesh)
+        x_u8, y, flip = rows(x_u8), rows(y), rows(flip)
+        dropout_masks = rows(dropout_masks)
+        scale = self.mesh.batch_scale
         x = pp.preprocess(x_u8, self.mean, self.std,
                           flip if self.augment else None,
                           dtype=self.spec.compute_dtype)
@@ -430,17 +452,18 @@ class HATEngine:
             {"train": True, "ones_gates": self.finetune_mode,
              "dropout_masks": dropout_masks})
         logits = heads_lib.forward(self.bank(trainable), feats, self.task)
-        ce = F.cross_entropy(logits, y)
+        ce = mesh_lib.share(F.cross_entropy(logits, y), scale)
+        # the sparsity term is the gates', counted once over the ranks
         loss = ce if self.finetune_mode else \
-            ce + lamb * sparsity_reg(gates, self.mask_pre)
+            ce + lamb * mesh_lib.share(sparsity_reg(gates, self.mask_pre),
+                                       scale)
         names = list(params)
         leaves = [params[n] for n in names]
         heads = [trainable["heads"]["kernel"], trainable["heads"]["bias"]]
-        raw = torch.autograd.grad(loss, leaves + heads, allow_unused=True)
+        # unused embeddings (all-ones gates): JAX's gradient is zero
+        g = mesh_lib.global_grads(loss, leaves + heads, self.mesh,
+                                  allow_unused=True)
         with torch.no_grad():
-            # unused embeddings (all-ones gates): JAX's gradient is zero
-            g = [torch.zeros_like(p) if r is None else r
-                 for r, p in zip(raw, leaves + heads)]
             gp, gh = g[:len(names)], g[len(names):]
             emb = [i for i, n in enumerate(names) if n.startswith("emb_")]
             rest = [i for i in range(len(names)) if i not in emb]
@@ -475,7 +498,8 @@ class HATEngine:
                 gp = torch._foreach_mul(gp, [self.mask_back[n] for n in names])
             heads_g = common.current_task_head_grads(
                 {"kernel": gh[0], "bias": gh[1]}, self.task)
-            acc = (logits.argmax(-1) == y).to(torch.float32).mean()
+            acc = mesh_lib.share(
+                (logits.argmax(-1) == y).to(torch.float32).mean(), scale)
         return ({"params": dict(zip(names, gp)), "heads": heads_g},
                 {"loss": ce.detach(), "acc": acc})
 
@@ -508,9 +532,10 @@ class HATEngine:
                     lamb: float, batch_size: int):
         """One epoch over ``perm`` (truncated to whole batches), ``s``
         annealed across its steps; the metrics are the means of the
-        per-step CE and accuracy, left on the device."""
+        per-step CE and accuracy, left on the device (all-reduced under a
+        group). The batch rounds down to a multiple of the ranks."""
         n = int(perm.shape[0])
-        bsz = min(int(batch_size), n)
+        bsz = mesh_lib.round_batch(batch_size, n, self.mesh.size)
         steps = n // bsz
         perm = torch.as_tensor(perm)[: steps * bsz].to(self.device)
         per_step: dict = {"loss": [], "acc": []}
@@ -523,24 +548,28 @@ class HATEngine:
                 anneal_s(self.smax, i, steps), lamb, flip, drop)
             for k, v in metrics.items():
                 per_step[k].append(v)
-        return state, {k: torch.stack(v).mean() for k, v in per_step.items()}
+        out = {k: torch.stack(v).mean() for k, v in per_step.items()}
+        mesh_lib.all_reduce_sum([out["loss"], out["acc"]], self.mesh)
+        return state, out
 
     def evaluate(self, trainable, images, labels, batch_size: int) -> float:
         """Accuracy at ``s = smax`` (all-ones gates in ``finetune_mode``),
-        float32 preprocess without flips; one read-back."""
+        float32 preprocess without flips; one read-back. Under a group the
+        batch rounds DOWN to a multiple of the ranks, as the JAX package's
+        HAT rounds it, and the hits are all-reduced."""
         n = int(images.shape[0])
-        bsz = min(int(batch_size), n)
+        bsz = mesh_lib.round_batch(batch_size, n, self.mesh.size)
         labels = torch.as_tensor(labels).to(self.device).long()
-        hits = torch.zeros((), device=self.device)
-        with torch.no_grad():
-            for lo in range(0, n, bsz):
-                x = pp.preprocess(images[lo: lo + bsz], self.mean, self.std)
-                feats, _ = functional_call(
-                    self.net, trainable["params"], (x, self.task, self.smax),
-                    {"ones_gates": self.finetune_mode})
-                logits = heads_lib.forward(self.bank(trainable), feats,
-                                           self.task)
-                hits += (logits.argmax(-1) == labels[lo: lo + bsz]).sum()
+
+        def logits_u8(x_u8):
+            x = pp.preprocess(x_u8, self.mean, self.std)
+            feats, _ = functional_call(
+                self.net, trainable["params"], (x, self.task, self.smax),
+                {"ones_gates": self.finetune_mode})
+            return heads_lib.forward(self.bank(trainable), feats, self.task)
+
+        hits, _ = mesh_lib.count_hits(images, labels, bsz, logits_u8,
+                                      mesh=self.mesh)
         return float(hits) / n
 
 
@@ -574,7 +603,14 @@ def hat_train_task(engine: HATEngine, exp_dir: str, trainable, task_data,
     best + 2`` restores the best weights (else the task-start ones), zeroes
     the momentum and cuts the lr, which also caps the lr at warm-up exit.
     The epoch's permutation and flips come from generators seeded with
-    (seed, epoch). Returns (best model in the JAX layout, best val acc)."""
+    (seed, epoch). Returns (best model in the JAX layout, best val acc).
+
+    Under a process group every rank runs this loop (the batch rounded
+    down to a multiple of the ranks, the weights broadcast from rank 0 at
+    the start); every decision comes from all-reduced numbers, and the
+    writer alone writes the files and the log lines."""
+    mesh = engine.mesh
+    log = mesh_lib.writer_log(log, mesh)
     os.makedirs(exp_dir, exist_ok=True)
     device = engine.device
     # whole on the device, whatever the data budget: the JAX package does
@@ -584,9 +620,13 @@ def hat_train_task(engine: HATEngine, exp_dir: str, trainable, task_data,
     val_images = place(task_data.val.images, device)
     val_labels = place(task_data.val.labels, device).long()
     n_train = int(train_images.shape[0])
-    bsz = min(batch_size, n_train)
+    bsz = mesh_lib.round_batch(batch_size, n_train, mesh.size)
+    if n_train < bsz:
+        raise ValueError(f"dataset of {n_train} samples cannot fill one "
+                         f"batch of {bsz} on {mesh.size} ranks")
 
     # finite task-start snapshot: the fallback for runs that never improve
+    mesh_lib.replicated(trainable, mesh)
     task_start = hat_to_host(trainable)
     state = (trainable, tree_zeros_like(trainable))
     patience = lr_patience

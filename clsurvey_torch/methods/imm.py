@@ -37,6 +37,7 @@ from clsurvey_torch.methods.reg_based import QuadRegRule, tree_copy
 from clsurvey_torch.models.convert import (
     batch_stats_from_jax, params_from_jax, params_to_jax)
 from clsurvey_torch.ops import importance as imp_lib
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, rng as rng_lib, timing
 
@@ -108,9 +109,12 @@ class IMM(Method):
         for k in range(2, len(models) + 1):
             out_path = os.path.join(
                 os.path.dirname(model_paths[k - 1]), merge_name)
-            stale = (io.exists(out_path)
-                     and os.path.getmtime(out_path) < prefix_mtime(k))
-            if not io.exists(out_path) or stale or args.test_overwrite_mode:
+            # the writer's look at the files, on every rank
+            redo = mesh_lib.agree(mesh_lib.is_writer() and (
+                not os.path.isfile(out_path)
+                or os.path.getmtime(out_path) < prefix_mtime(k)
+                or args.test_overwrite_mode))
+            if redo:
                 if self.mode == "mean":
                     merged = merge_mean(models[:k])
                 else:
@@ -137,10 +141,11 @@ class IMM(Method):
             if isinstance(path, str):
                 cache = os.path.join(os.path.dirname(path),
                                      PRECISION_FILENAME)
-                fresh = (io.exists(cache)
-                         and (not os.path.exists(path) or
-                              os.path.getmtime(cache)
-                              >= os.path.getmtime(path)))
+                fresh = mesh_lib.agree(mesh_lib.is_writer() and (
+                    os.path.isfile(cache)
+                    and (not os.path.exists(path)
+                         or os.path.getmtime(cache)
+                         >= os.path.getmtime(path))))
                 if fresh and not args.test_overwrite_mode:
                     precisions.append(io.load(cache))
                     continue

@@ -29,6 +29,7 @@ from clsurvey_torch.models.convert import (
     batch_stats_from_jax, batch_stats_to_jax, params_from_jax, params_to_jax,
     port_layout)
 from clsurvey_torch.ops.distill import lwf_distill_multi
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import io
 
 TEMPERATURE = 2.0
@@ -107,10 +108,14 @@ class LwFRule(UpdateRule):
                    batch_stats=None, gen=None):
         """The JAX rule hands its ``rng`` only to the teacher's forward;
         that forward runs with ``train=False`` and draws nothing, so this
-        rule draws nothing from ``gen`` either."""
+        rule draws nothing from ``gen`` either. The distillation is a mean
+        over the batch: the rank's share is its rows' mean times
+        ``ctx.mesh.batch_scale``."""
         if ctx.n_tasks - 1 == 0:
             return 0.0
-        return self.distill_term(ctx, trainable, feats, batch, mstate)
+        return mesh_lib.share(
+            self.distill_term(ctx, trainable, feats, batch, mstate),
+            ctx.mesh.batch_scale)
 
 
 @dataclass

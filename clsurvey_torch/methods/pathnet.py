@@ -37,7 +37,16 @@ the stored ``init_params`` (ref:pathnet.py:83-99).
 
 On disk the weights keep the JAX package's flat PathNet layout
 (``models/convert.py``), with the ``init_params`` tree beside them and the
-best paths in ``method_aux``."""
+best paths in ``method_aux``.
+
+Data parallel (``parallel/mesh.py``, :class:`PathNetFns`' ``mesh``): the
+batch of 64 rounds down to a multiple of the ranks (``clsurvey_tpu/
+methods/pathnet.py:315-319, 483-487``), each step's draws are the global
+batch's and each rank runs its rows; CE is the rank's share of the mean,
+and the gradient is all-reduced before the module gate. The tournament's
+evaluations round their batch down too, pad the last one to a multiple of
+the ranks with rows of weight 0, and all-reduce the hits, so every rank
+picks the same winners; the writer writes the files."""
 
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ from clsurvey_torch.models.convert import (
     pathnet_params_from_jax, pathnet_params_to_jax)
 from clsurvey_torch.ops import preprocess as pp
 from clsurvey_torch.ops.conv import conv2d
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
 from clsurvey_torch.utils import io, rng as rng_lib
 from clsurvey_torch.utils.paths import BEST_MODEL_FILENAME
@@ -322,13 +332,14 @@ class PathNetFns:
     """Train epoch and eval of one PathNet module, task and device."""
 
     def __init__(self, net: PathNetVGG, mean, std, class_counts, task: int,
-                 device, augment: bool = True):
+                 device, augment: bool = True, mesh=None):
         self.net = net
         self.mean, self.std = tuple(mean), tuple(std)
         self.class_counts = np.asarray(class_counts, np.int32)
         self.task = task
         self.device = device
         self.augment = augment
+        self.mesh = mesh if mesh is not None else mesh_lib.get_mesh(device)
 
     def bank(self, trainable) -> dict:
         return {"kernel": trainable["heads"]["kernel"],
@@ -355,17 +366,22 @@ class PathNetFns:
                    flip=None, dropout_masks=None):
         """One SGD step (momentum 0.9) with the gradient hard-selected by
         ``keep`` (name -> bool gate) and only the current head trained.
-        Returns the new trainable; the momentum is updated in place."""
-        x = pp.preprocess(x_u8, self.mean, self.std, flip,
+        Returns the new trainable; the momentum is updated in place. The
+        batch and the draws are global; the rank runs its rows and the
+        gradient is all-reduced before the gate."""
+        rows = lambda t: mesh_lib.constrain_batch(t, self.mesh)
+        x = pp.preprocess(rows(x_u8), self.mean, self.std, rows(flip),
                           dtype=self.net.dtype)
         feats = functional_call(self.net, trainable["params"], (x, path),
                                 {"train": True,
-                                 "dropout_masks": dropout_masks})
-        loss = F.cross_entropy(heads_lib.forward(self.bank(trainable),
-                                                 feats, self.task), y)
+                                 "dropout_masks": rows(dropout_masks)})
+        loss = mesh_lib.share(
+            F.cross_entropy(heads_lib.forward(self.bank(trainable), feats,
+                                              self.task), rows(y)),
+            self.mesh.batch_scale)
         names = list(trainable["params"])
         leaves = tree_leaves(trainable)
-        g = torch.autograd.grad(loss, leaves)
+        g = mesh_lib.global_grads(loss, leaves, self.mesh)
         with torch.no_grad():
             gp = [torch.where(keep[n], gi, 0.0)
                   for n, gi in zip(names, g[:len(names)])]
@@ -383,10 +399,10 @@ class PathNetFns:
     def train_epoch(self, trainable, momentum, images, labels, perm, path,
                     gates, gen, lr: float):
         """One epoch over ``perm`` at batch 64 (the dataset's size if
-        smaller), truncated to whole batches. Returns (trainable,
-        momentum)."""
+        smaller, rounded down to a multiple of the ranks), truncated to
+        whole batches. Returns (trainable, momentum)."""
         n = int(perm.shape[0])
-        bsz = min(TRAIN_BATCH, n)
+        bsz = mesh_lib.round_batch(TRAIN_BATCH, n, self.mesh.size)
         perm = torch.as_tensor(perm)[: (n // bsz) * bsz].to(self.device)
         path = torch.as_tensor(np.asarray(path), dtype=torch.long,
                                device=self.device)
@@ -402,21 +418,23 @@ class PathNetFns:
 
     def eval_acc(self, trainable, images, labels, path,
                  batch_size: int = TOURNAMENT_EVAL_BATCH) -> float:
-        """Accuracy of ``path`` on uint8 ``images``; one read-back."""
+        """Accuracy of ``path`` on uint8 ``images``; one read-back. Under a
+        group the batch rounds down to a multiple of the ranks, the last
+        one is padded with rows of weight 0, and the hits are
+        all-reduced."""
         n = int(images.shape[0])
-        bsz = min(int(batch_size), n)
+        bsz = mesh_lib.round_batch(batch_size, n, self.mesh.size)
         labels = torch.as_tensor(labels).to(self.device).long()
         path = torch.as_tensor(np.asarray(path), dtype=torch.long,
                                device=self.device)
-        hits = torch.zeros((), device=self.device)
-        with torch.no_grad():
-            for lo in range(0, n, bsz):
-                x = pp.preprocess(images[lo: lo + bsz], self.mean, self.std)
-                feats = functional_call(self.net, trainable["params"],
-                                        (x, path))
-                logits = heads_lib.forward(self.bank(trainable), feats,
-                                           self.task)
-                hits += (logits.argmax(-1) == labels[lo: lo + bsz]).sum()
+
+        def logits_u8(x_u8):
+            x = pp.preprocess(x_u8, self.mean, self.std)
+            feats = functional_call(self.net, trainable["params"], (x, path))
+            return heads_lib.forward(self.bank(trainable), feats, self.task)
+
+        hits, _ = mesh_lib.count_hits(images, labels, bsz, logits_u8,
+                                      mesh=self.mesh)
         return float(hits) / n
 
 
@@ -538,6 +556,8 @@ class PathNet(Method):
                              class_counts, t, device,
                              augment=getattr(args, "augment", True))
 
+        mesh = mesh_lib.get_mesh(device)
+        mesh_lib.replicated(trainable, mesh)
         momenta = [tree_zeros_like(trainable) for _ in range(P)]
         lrs = [manager.extras.get("lr", args.lr_grid[0])] * P
         patience = [self.lr_patience] * P
@@ -551,7 +571,8 @@ class PathNet(Method):
                 gates = module_train_mask(trainable["params"], paths[p],
                                           frozen, n_convs)
                 for e in range(nepochs_per_gen):
-                    bsz = min(TRAIN_BATCH, n_train)
+                    bsz = mesh_lib.round_batch(TRAIN_BATCH, n_train,
+                                               mesh.size)
                     perm = torch.randperm(n_train, generator=perm_gen)
                     perm = perm[: (n_train // bsz) * bsz]
                     trainable, momenta[p] = fns.train_epoch(

@@ -109,7 +109,9 @@ class SIRule(QuadRegRule):
         return state
 
     def post_step(self, ctx, mstate, old_trainable, new_trainable,
-                  raw_grads, batch, raw_images=None):
+                  raw_grads, batch, raw_images=None, raw_labels=None):
+        """``raw_grads`` is the global batch's (all-reduced) gradient, so
+        the path integral is equal on every rank."""
         names = list(mstate["w"])
         delta = torch._foreach_sub(
             [new_trainable["params"][k] for k in names],

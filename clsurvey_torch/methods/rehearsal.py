@@ -38,7 +38,17 @@ come from the epoch's device generator the engine hands its hooks, through
 one ``draw`` method per rule, which a test replaces with the JAX run's
 draws. The JAX package's documented deviations from the reference carry
 over (remainder rows drawn per batch, exemplars drawn with replacement,
-per-element dropout masks)."""
+per-element dropout masks).
+
+Data parallel (``parallel/mesh.py``): every rule draws for its GLOBAL rows
+(a memory chunk, the replayed exemplars) and then keeps its rank's rows of
+them and of the draws (``ctx.mesh.shard``). GEM's memory losses are sums
+over the global valid count, so each rank's chunk rows give its share, and
+the (t, p) memory gradients are all-reduced once a step before the QP,
+which then runs on every rank on equal inputs. The replay and iCaRL terms
+are means over their rows: the rank's mean times the shard's
+``mean_scale``. The ring writes the global batch's rows (``post_step``'s
+``raw_images`` / ``raw_labels``), so every rank's memory stays equal."""
 
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ from clsurvey_torch.ops import herding as herd_lib
 from clsurvey_torch.ops import preprocess as pp
 from clsurvey_torch.ops.distill import icarl_distill
 from clsurvey_torch.ops.qp import gem_project_if_violating
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import io
 
 NEG_INF = heads_lib.NEG_INF
@@ -213,9 +224,12 @@ class _MemoryRule(UpdateRule):
         return state
 
     def post_step(self, ctx, mstate, old_trainable, new_trainable,
-                  raw_grads, batch, raw_images=None):
-        memory = ring_buffer_update(mstate["memory"], ctx.task, raw_images,
-                                    batch[1])
+                  raw_grads, batch, raw_images=None, raw_labels=None):
+        """The ring takes the global batch's rows: every rank's memory
+        stays equal."""
+        memory = ring_buffer_update(
+            mstate["memory"], ctx.task, raw_images,
+            batch[1] if raw_labels is None else raw_labels)
         return {**mstate, "memory": memory}
 
     def export_aux(self, mstate):
@@ -264,7 +278,9 @@ class GEMRule(_MemoryRule):
         last chunk re-slices from M - mb with the overlap masked out, and
         every chunk divides by the task's valid count, so the result does
         not depend on the chunk size. The forwards run in train mode
-        (batch-norm on each chunk's statistics, which are dropped)."""
+        (batch-norm on each chunk's statistics, which are dropped). Under a
+        process group each rank runs its rows of every chunk and the
+        result is all-reduced: the global memory gradients."""
         mem = mstate["memory"]
         M = mem["mem_images"].shape[1]
         mb = min(M, self.mem_batch)
@@ -277,22 +293,26 @@ class GEMRule(_MemoryRule):
             acc = None
             for i in range(nb):
                 start = min(i * mb, M - mb)
+                sh = ctx.mesh.shard(mb)
+                lo, hi = start + sh.lo, start + sh.hi
                 idxs = start + torch.arange(mb, device=ctx.device)
+                idxs = idxs[sh.lo:sh.hi]
                 w = ((idxs >= i * mb) & (idxs < n_valid)).to(torch.float32)
-                flip, drop = self.draw(ctx, gen, mb)
-                x = ctx.preprocess(mem["mem_images"][tt, start:start + mb],
-                                   flip)
+                flip, drop = (mesh_lib.constrain_batch(m, ctx.mesh)
+                              for m in self.draw(ctx, gen, mb))
+                x = ctx.preprocess(mem["mem_images"][tt, lo:hi], flip)
                 feats, _ = ctx.forward_feats(trainable["params"], batch_stats,
                                              x, True, drop)
                 ce = F.cross_entropy(
                     heads_lib.forward(bank, feats, tt),
-                    mem["mem_labels"][tt, start:start + mb].long(),
+                    mem["mem_labels"][tt, lo:hi].long(),
                     reduction="none")
-                loss = (ce * w).sum() / n_valid.clamp_min(1)
+                loss = mesh_lib.share((ce * w).sum() / n_valid.clamp_min(1),
+                                      sh.sum_scale)
                 g = _flat(torch.autograd.grad(loss, leaves))
                 acc = g if acc is None else acc + g
             rows.append(acc)
-        return torch.stack(rows)
+        return mesh_lib.all_reduce_sum([torch.stack(rows)], ctx.mesh)[0]
 
     def compute_grads(self, ctx, trainable, batch_stats, batch, mstate,
                       base_fn, gen=None):
@@ -343,9 +363,15 @@ class ReplayRule(_MemoryRule):
         return out
 
     def _ce(self, ctx, trainable, batch_stats, x_u8, y, masks, head):
-        """CE of replayed rows under ``head``: a task index, or per-row
-        tasks (the remainder rows pick their head from the bank)."""
-        flip, drop = masks
+        """This rank's share of the mean CE of replayed rows under
+        ``head``: a task index, or per-row tasks (the remainder rows pick
+        their head from the bank). The rows, their masks and their heads
+        are the global draw's; the rank keeps its shard of them."""
+        sh = ctx.mesh.shard(int(x_u8.shape[0]))
+        x_u8, y = x_u8[sh.lo:sh.hi], y[sh.lo:sh.hi]
+        flip, drop = (mesh_lib.constrain_batch(m, ctx.mesh) for m in masks)
+        if not isinstance(head, int):
+            head = head[sh.lo:sh.hi]
         feats, _ = ctx.forward_feats(trainable["params"], batch_stats,
                                      ctx.preprocess(x_u8, flip), True, drop)
         bank = ctx.bank(trainable)
@@ -354,7 +380,8 @@ class ReplayRule(_MemoryRule):
         else:
             logits = heads_lib.forward_all(bank, feats, ctx.task)[
                 torch.arange(len(head), device=feats.device), head]
-        return F.cross_entropy(logits, y.long())
+        return mesh_lib.share(F.cross_entropy(logits, y.long()),
+                              sh.mean_scale)
 
     def extra_loss(self, ctx, trainable, feats, batch, mstate,
                    batch_stats=None, gen=None):
@@ -431,7 +458,11 @@ class ICarlRule(UpdateRule):
             return 0.0
         ex = mstate["exemplars"]
         d = self.draw(ctx, mstate, gen)
-        idx, (flip, drop) = d["idx"], d["masks"]
+        # the global draw; this rank distills its shard of it
+        sh = ctx.mesh.shard(self.n_append)
+        idx = d["idx"][sh.lo:sh.hi]
+        flip, drop = (mesh_lib.constrain_batch(m, ctx.mesh)
+                      for m in d["masks"])
         x = ctx.preprocess(ex["images"].index_select(0, idx), flip)
         feats_m, _ = ctx.forward_feats(trainable["params"], batch_stats, x,
                                        True, drop)
@@ -452,7 +483,8 @@ class ICarlRule(UpdateRule):
         dist = icarl_distill(logits.masked_fill(outside, NEG_INF),
                              targets.masked_fill(outside, NEG_INF), self.T)
         dist = dist.clamp_min(0.0)  # numerical guard (ref:icarl.py:586)
-        return mstate["hyper"]["lambda"] * dist
+        return mstate["hyper"]["lambda"] * mesh_lib.share(dist,
+                                                          sh.mean_scale)
 
     def export_aux(self, mstate):
         return {"exemplars": exemplars_to_host(mstate["exemplars"])}
@@ -819,7 +851,8 @@ class ICARL(Method):
         head:  argmin_c ||f - mu_c||  ==  argmax_c (2 f.mu_c - ||mu_c||^2),
         so the NCM classifier is a synthesized (kernel=2mu, bias=-|mu|^2)
         task head on the standard eval path. The means are numpy float32
-        means of the features, as in the JAX package."""
+        means of the features, as in the JAX package; under a process
+        group each rank computes them whole and takes rank 0's."""
         model = io.load(model_path) if isinstance(model_path, str) \
             else model_path
         ex = (model.get("method_aux") or {}).get("exemplars")
@@ -839,6 +872,8 @@ class ICARL(Method):
                 continue
             means[local_c] = feats_of(imgs[sel]).cpu().numpy().mean(0)
             present[local_c] = True
+        # computed whole on every rank; rank 0's on all of them
+        means = mesh_lib.replicated(torch.from_numpy(means)).numpy()
 
         kern = np.array(model["heads"]["kernel"], copy=True)
         bias = np.array(model["heads"]["bias"], copy=True)

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from clsurvey_torch.ops.conv import conv2d
 from clsurvey_torch.ops.pool import pool2x2
+from clsurvey_torch.parallel import mesh as mesh_lib
 
 # Feature-extractor configs, numbers-as-data from the reference table
 # (ref:src/models/VGGSlim.py:13-24). 'M' = 2x2 stride-2 max-pool.
@@ -155,7 +156,8 @@ class VGGBackbone(nn.Module):
                 stats[var] = torch.ones_like(layer.scale)
         return stats
 
-    def _bn(self, x, i: int, batch_stats, train: bool, new_stats: dict):
+    def _bn(self, x, i: int, batch_stats, train: bool, new_stats: dict,
+            mesh=None):
         layer = self.features[f"bn_{i}"]
         mean_name, var_name = bn_stat_names(i)
         x = _cast(x, torch.float32)
@@ -165,6 +167,9 @@ class VGGBackbone(nn.Module):
             mul = torch.rsqrt(batch_stats[var_name] + BN_EPS) * layer.scale
             return ((x - batch_stats[mean_name].view(1, -1, 1, 1))
                     * mul.view(1, -1, 1, 1) + layer.bias.view(1, -1, 1, 1))
+        if mesh is not None and mesh.distributed:
+            return self._bn_global(x, layer, batch_stats, mean_name,
+                                   var_name, new_stats, mesh)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             for name, batch in ((mean_name, mean), (var_name, var)):
@@ -173,13 +178,42 @@ class VGGBackbone(nn.Module):
         return F.batch_norm(x, None, None, layer.scale, layer.bias,
                             training=True, eps=BN_EPS)
 
+    @staticmethod
+    def _bn_global(x, layer, batch_stats, mean_name, var_name, new_stats,
+                   mesh):
+        """Train-mode batch-norm over the GLOBAL batch under a process
+        group (``parallel/mesh.py``): the per-channel mean from the ranks'
+        all-reduced sums and row counts, then the biased variance the same
+        way in two passes (squared deviations from the global mean, as
+        ``torch.var_mean`` computes it, not E[x^2] - E[x]^2). Both sums go
+        through ``all_reduce_sum_grad``, whose backward all-reduces, so the
+        gradient is that of the global batch's normalization."""
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), dtype=x.dtype,
+                           device=x.device)
+        sums = mesh_lib.all_reduce_sum_grad(
+            torch.cat([x.sum(dim=(0, 2, 3)), count]), mesh)
+        n = sums[c].detach()
+        mean = sums[:c] / n
+        dev = x - mean.view(1, -1, 1, 1)
+        var = mesh_lib.all_reduce_sum_grad(
+            (dev * dev).sum(dim=(0, 2, 3)), mesh) / n
+        with torch.no_grad():
+            for name, batch in ((mean_name, mean), (var_name, var)):
+                new_stats[name] = (BN_MOMENTUM * batch_stats[name]
+                                   + (1.0 - BN_MOMENTUM) * batch.detach())
+        mul = torch.rsqrt(var + BN_EPS) * layer.scale
+        return dev * mul.view(1, -1, 1, 1) + layer.bias.view(1, -1, 1, 1)
+
     def forward(self, x: torch.Tensor, batch_stats: dict | None = None,
                 train: bool = False, dropout_masks=None,
-                part: str = "all"):
+                part: str = "all", mesh=None):
         """``train=False``: the float32 features, batch-norm on the running
         statistics, no dropout. ``train=True``: ``(features, new
         batch_stats)``, batch-norm on the batch's statistics, dropout under
-        ``dropout_masks``.
+        ``dropout_masks``. ``x`` is this rank's rows of the batch: under a
+        ``mesh`` with a process group (``parallel/mesh.py``) batch-norm
+        takes the global batch's moments, else those of ``x``.
 
         ``part="features"`` stops after the conv extractor and returns its
         NHWC-flattened float32 output (EBLL's autoencoder space) in place of
@@ -187,7 +221,7 @@ class VGGBackbone(nn.Module):
         and runs only the trunk."""
         new_stats: dict = {}
         if part != "trunk":
-            x = self._features(x, batch_stats, train, new_stats)
+            x = self._features(x, batch_stats, train, new_stats, mesh)
         if part != "features":
             x = self._trunk(x, train, dropout_masks)
         x = x.to(torch.float32)
@@ -196,7 +230,7 @@ class VGGBackbone(nn.Module):
         return x, ({**batch_stats, **new_stats} if new_stats
                    else batch_stats)
 
-    def _features(self, x_nhwc, batch_stats, train, new_stats):
+    def _features(self, x_nhwc, batch_stats, train, new_stats, mesh):
         dt = self.dtype
         x = x_nhwc.permute(0, 3, 1, 2)  # NCHW, channels_last
         for i, v in enumerate(self.cfg):
@@ -208,7 +242,7 @@ class VGGBackbone(nn.Module):
             x = conv2d(_cast(x, dt), _cast(conv.weight, dt),
                        _cast(conv.bias, dt), padding=1)
             if self.batch_norm:
-                x = self._bn(x, i, batch_stats, train, new_stats)
+                x = self._bn(x, i, batch_stats, train, new_stats, mesh)
             x = torch.relu(x)
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
 
@@ -301,10 +335,11 @@ class AlexNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor, batch_stats: dict | None = None,
                 train: bool = False, dropout_masks=None,
-                part: str = "all"):
+                part: str = "all", mesh=None):
         """As :meth:`VGGBackbone.forward`: ``part="features"`` returns the
         NHWC-flattened float32 conv output (EBLL's autoencoder space),
-        ``part="trunk"`` runs the FC layers on such a tensor."""
+        ``part="trunk"`` runs the FC layers on such a tensor. ``mesh`` is
+        unused: without batch-norm no layer reduces over the batch."""
         if part != "trunk":
             x = self._features(x)
         if part != "features":

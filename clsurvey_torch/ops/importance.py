@@ -30,7 +30,17 @@ pass runs the backbone with ``train=False``, so batch-norm uses those and
 ``torch.func.vmap(grad)`` sees no batch statistics. A host split above the
 device data budget streams through chunks of whole batches
 (:func:`_accumulate_chunked`), each chunk's estimate rescaled to its share
-of the split, as in the JAX package."""
+of the split, as in the JAX package.
+
+Data parallel (``parallel/mesh.py``): each rank runs its rows of every
+batch (``ctx.mesh.shard``). MAS's estimate is a sum over samples, so each
+rank sums its own and the tree is all-reduced once, at the end of the pass.
+EWC and mode-IMM square a BATCH gradient, which is not a sum over the
+ranks' rows: their gradient is all-reduced per batch (one flat buffer)
+before it is squared, as GSPMD reduces it inside the JAX package's step.
+mode-IMM draws its labels from the global batch's softmax: the ranks'
+probabilities are summed into one (b, C) buffer (each rank fills its rows)
+and every rank draws from it, as one device does."""
 
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ from clsurvey_torch.engine.train import (data_budget_bytes, place,
                                          stream_chunk_rows)
 from clsurvey_torch.models import heads as heads_lib
 from clsurvey_torch.ops import preprocess as pp
+from clsurvey_torch.parallel import mesh as mesh_lib
 
 
 def _budget_chunk_rows(images_np, batch_size: int) -> int | None:
@@ -122,13 +133,16 @@ def ewc_fisher(ctx, params, batch_stats, heads_bank, task: int,
     leaves = [params[k].detach().requires_grad_() for k in names]
     p = dict(zip(names, leaves))
     omega = [torch.zeros_like(t) for t in leaves]
-    for bidx, bw in zip(idx, w):
+    sh = ctx.mesh.shard(batch_size)
+    for bidx, bw in zip(idx[:, sh.lo:sh.hi], w[:, sh.lo:sh.hi]):
         x = pp.preprocess(images.index_select(0, bidx), ctx.mean, ctx.std)
         y = labels.index_select(0, bidx)
         feats, _ = ctx.forward_feats(p, batch_stats, x, False)
         logits = heads_lib.forward(bank, feats, task)
-        loss = (F.cross_entropy(logits, y, reduction="none") * bw).sum()
-        grads = torch.autograd.grad(loss, leaves)
+        loss = mesh_lib.share(
+            (F.cross_entropy(logits, y, reduction="none") * bw).sum(),
+            sh.sum_scale)
+        grads = mesh_lib.global_grads(loss, leaves, ctx.mesh)
         sq = torch._foreach_mul(grads, grads)  # omega += g*g / N
         torch._foreach_div_(sq, n_total)
         torch._foreach_add_(omega, sq)
@@ -142,17 +156,30 @@ def mas_importance(ctx, params, batch_stats, heads_bank, task: int,
     The reference runs batch-size-1 backward passes over the whole previous
     dataset; here a vmapped grad computes ``chunk`` per-sample gradients at
     once (the math is identical: mean of per-sample |g|). A host split
-    over the device data budget streams through chunks."""
-    from torch.func import grad, vmap
-
+    over the device data budget streams through chunks. Each rank sums its
+    rows; the tree is all-reduced once, at the end of the pass."""
     if isinstance(images_u8, np.ndarray):
         rows = _budget_chunk_rows(images_u8, chunk)
         if rows is not None:
-            return _accumulate_chunked(
-                lambda xs, _: mas_importance(
+            omega = _accumulate_chunked(
+                lambda xs, _: _mas_local(
                     ctx, params, batch_stats, heads_bank, task,
                     torch.from_numpy(np.ascontiguousarray(xs)), chunk),
                 images_u8, None, rows)
+            mesh_lib.all_reduce_sum(list(omega.values()), ctx.mesh)
+            return omega
+    omega = _mas_local(ctx, params, batch_stats, heads_bank, task,
+                       images_u8, chunk)
+    mesh_lib.all_reduce_sum(list(omega.values()), ctx.mesh)
+    return omega
+
+
+def _mas_local(ctx, params, batch_stats, heads_bank, task: int, images_u8,
+               chunk: int) -> dict:
+    """MAS omega over this rank's rows of every chunk, before the
+    all-reduce."""
+    from torch.func import grad, vmap
+
     images = place(images_u8, ctx.device)
     idx, w = _batched_indices(int(images.shape[0]), chunk, ctx.device)
     n_total = float(images.shape[0])
@@ -170,7 +197,9 @@ def mas_importance(ctx, params, batch_stats, heads_bank, task: int,
 
     per_sample_grads = vmap(grad(sq_norm), in_dims=(None, 0))
     omega = {k: torch.zeros_like(v) for k, v in p.items()}
-    for cidx, cw in zip(idx, w):
+    sh = ctx.mesh.shard(chunk)
+    for cidx, cw in zip(idx[:, sh.lo:sh.hi],
+                        mesh_lib.share(w[:, sh.lo:sh.hi], sh.sum_scale)):
         x = pp.preprocess(images.index_select(0, cidx), ctx.mean, ctx.std)
         g = per_sample_grads(p, x)
         for k, gk in g.items():
@@ -208,18 +237,24 @@ def imm_mode_fisher(ctx, params, batch_stats, heads_bank, task: int,
             given = torch.as_tensor(np.asarray(given)).to(
                 ctx.device).long().view(n_batches, batch_size)
         acc = [torch.zeros_like(t) for t in leaves]
+        sh = ctx.mesh.shard(batch_size)
         for b in range(n_batches):
-            x = pp.preprocess(images[b * batch_size: (b + 1) * batch_size],
+            x = pp.preprocess(images[b * batch_size + sh.lo:
+                                     b * batch_size + sh.hi],
                               ctx.mean, ctx.std)
             feats, _ = ctx.forward_feats(p, batch_stats, x, False)
             logits = heads_lib.forward(bank, feats, task)
             if given is not None:
-                y = given[b]
+                y = given[b][sh.lo:sh.hi]
             else:
                 with torch.no_grad():
-                    y = torch.multinomial(torch.softmax(logits, -1), 1,
-                                          generator=generator).squeeze(1)
-            grads = torch.autograd.grad(F.cross_entropy(logits, y), leaves)
+                    y = torch.multinomial(
+                        _global_rows(torch.softmax(logits, -1), sh,
+                                     batch_size, ctx.mesh), 1,
+                        generator=generator).squeeze(1)[sh.lo:sh.hi]
+            grads = mesh_lib.global_grads(
+                mesh_lib.share(F.cross_entropy(logits, y), sh.mean_scale),
+                leaves, ctx.mesh)
             sq = torch._foreach_mul(grads, grads)  # acc += g*g / batches
             torch._foreach_div_(sq, float(n_batches))
             torch._foreach_add_(acc, sq)
@@ -244,3 +279,15 @@ def imm_mode_fisher(ctx, params, batch_stats, heads_bank, task: int,
                                           rows)
         omega = {k: omega[k] + contrib[k] for k in names}
     return omega
+
+
+def _global_rows(rows: torch.Tensor, sh, b: int, mesh) -> torch.Tensor:
+    """The (b, ...) global batch of per-row values whose rows ``[sh.lo,
+    sh.hi)`` this rank holds: each rank writes its rows into a zero buffer
+    and the buffers are all-reduced. ``rows`` itself where every rank
+    holds every row (one device, or fewer rows than ranks)."""
+    if not mesh.distributed or sh.sum_scale != 1.0:
+        return rows
+    full = rows.new_zeros((b,) + tuple(rows.shape[1:]))
+    full[sh.lo:sh.hi] = rows
+    return mesh_lib.all_reduce_sum([full], mesh)[0]

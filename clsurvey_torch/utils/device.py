@@ -8,11 +8,16 @@ products: the CLI path computes in float32 (``parse_model_name`` defaults
 ``compute_dtype`` to float32), and TF32 would keep only about three decimal
 digits of each product. The bf16 path casts explicitly and is unaffected.
 cuDNN's autotuner is on: every training step of a task has the same
-shapes, so the one-time search pays for itself."""
+shapes, so the one-time search pays for itself.
+
+Under a process group (``parallel/mesh.py``) ``cuda`` without an index is
+the rank's card, ``cuda:{LOCAL_RANK % device_count}``."""
 
 from __future__ import annotations
 
 import torch
+
+from clsurvey_torch.parallel import mesh as mesh_lib
 
 
 def resolve(device: str | torch.device) -> torch.device:
@@ -25,6 +30,10 @@ def resolve(device: str | torch.device) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.benchmark = True
+        mesh = mesh_lib.get_mesh(dev)
+        if dev.index is None and mesh.distributed \
+                and mesh.device.type == "cuda":
+            dev = mesh.device
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev

@@ -30,13 +30,38 @@ def kernel_us(prof) -> dict:
             if "CUDA" in str(getattr(e, "device_type", ""))}
 
 
+def _event_ms(fn, flush=None, iters: int = 20) -> float:
+    """CUDA-event ms per call of ``fn``, each call between two events of
+    its own (``flush()`` before it, outside them): the reading taken where
+    the profiler sees no device time, as CUPTI now and then does not for
+    the rest of a process. It counts the gaps between ``fn``'s kernels and
+    a launch's latency too, so it is an upper bound of the device time."""
+    print(f"devtime: the profiler saw no device time three times; "
+          f"{getattr(fn, '__name__', 'fn')} timed with CUDA events",
+          flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
     """(device_ms, event_ms) per call of ``fn``. device_ms is the summed
     device time of the kernels ``fn`` launches; event_ms is CUDA-event time
     over ``iters`` back-to-back calls, which for a short kernel is bounded
     by the host's time per call rather than by the kernel. Back-to-back
     calls on one input keep it in the 50 MB L2 where it fits: warm.
-    ``fn`` must launch the same kernels on every call."""
+    ``fn`` must launch the same kernels on every call. Where three
+    profiles in a row see no device time, device_ms is :func:`_event_ms`'s
+    reading."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -60,14 +85,15 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
         us = _per_call_us(kept, iters)
         if us is not None:
             return us / 1e3, event_ms
-    raise AssertionError("the profiler saw no device time, three times")
+    return _event_ms(fn, iters=iters), event_ms
 
 
 def cold_ms(fn, flush, iters: int = 20) -> float:
     """Device ms per call of ``fn`` on a cold L2: ``flush()``, which
     overwrites a buffer larger than the L2, runs before each call, and its
     kernels, named by a profile of ``flush`` alone, are left out of the
-    sum. ``fn`` must launch the same kernels on every call."""
+    sum. ``fn`` must launch the same kernels on every call. Where three
+    profiles in a row see no device time, :func:`_event_ms`'s reading."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -87,4 +113,4 @@ def cold_ms(fn, flush, iters: int = 20) -> float:
         us = _per_call_us(kept, iters)
         if skip and us is not None:
             return us / 1e3
-    raise AssertionError("the profiler saw no device time, three times")
+    return _event_ms(fn, flush, iters)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import os
 from collections import OrderedDict
 
+from clsurvey_torch.parallel import mesh as mesh_lib
+from clsurvey_torch.utils import io
 from clsurvey_torch.utils.config import load_config
 
 TASK_TRAINING_DIRNAME = "TASK_TRAINING"
@@ -126,10 +128,14 @@ def success_flag_path(dirname: str) -> str:
 
 
 def set_success(dirname: str) -> None:
-    os.makedirs(dirname, exist_ok=True)
-    with open(success_flag_path(dirname), "w") as f:
-        f.write("done\n")
+    """Collective under a process group: the writer writes the flag."""
+    def write():
+        os.makedirs(dirname, exist_ok=True)
+        with open(success_flag_path(dirname), "w") as f:
+            f.write("done\n")
+
+    mesh_lib.writer_does(write)
 
 
 def has_success(dirname: str) -> bool:
-    return os.path.isfile(success_flag_path(dirname))
+    return io.exists(success_flag_path(dirname))

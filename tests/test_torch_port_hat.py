@@ -35,6 +35,7 @@ import torch
 from clsurvey_torch.framework import main as tmain
 from clsurvey_torch.methods import hat as that
 from clsurvey_torch.models import convert, registry as treg
+from clsurvey_torch.parallel.mesh import Mesh
 from clsurvey_torch.utils import config as tconfig, io as tio
 from clsurvey_torch.utils.paths import EPOCH_CKPT_FILENAME
 from clsurvey_tpu.framework.common import RunArgs as JRunArgs
@@ -366,6 +367,7 @@ def _run_controller(pkg, exp_dir, losses, vals, **kw):
         class Engine:
             smax = SMAX
             device = torch.device("cpu")
+            mesh = Mesh()
 
             def train_epoch(self, state, images, labels, perm, gen, lr,
                             lamb, bsz):
