@@ -123,7 +123,24 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    rank 0 as many as the one process, A, B1 and B2 launched on each rank,
    eval matrices and the best models' batch-norm statistics within
    ``DP_CLI_ACC_TOL`` / ``DP_CLI_STATS_REL_TOL``, per-task seconds;
-11. protocol: bench.py's throughput point (20k random uint8 rows, batch
+11. survey: the survey's scripts (``clsurvey_torch/scripts``).
+   ``run_survey_demo.main`` in this process: small_VGG9_cl_128_128 at full
+   width on synthetic 64-px tasks of 10 classes (64 / 32 / 32 rows a
+   class), batch 100, the SI dump, then all 16 method variants through
+   the two-phase framework (``--lr_grid 5e-2,1e-2``, ``--max_attempts
+   2``) and the eval matrix into one results tree, cut to
+   ``SURVEY_TASKS`` tasks of 2 epochs (``SURVEY_CUTS``), the kernels'
+   counters zeroed before each run; every status ``ok``, every variant
+   trained every task, a 16-row table, the row store's fields, the
+   summary and, where matplotlib imports, both figures (else the script
+   renders the rest and says why), and a ``--postprocess_only`` render
+   that keeps every row's commit and date; A launched by every variant,
+   B1 and B2 by every variant but PathNet (which pools with
+   ``F.max_pool2d``). Then ``run_timing_mode.main`` for
+   finetuning on 2 tasks of 100 rows a class (one row a trained task, the
+   card in its title) and ``hd200_family_report.build_report`` over the
+   sweep's rows (printed, not held: at 2 epochs the order is noise);
+12. protocol: bench.py's throughput point (20k random uint8 rows, batch
    200) through the port's Engine in bf16 and float32, each with a short
    profiler breakdown.
 
@@ -133,9 +150,10 @@ The kernels phase also holds A, B1 and B2 at batch sizes 1, 67, 128 and
 1024 (``REHEARSAL_BATCHES``); every other size the rehearsal and masks
 phases hand them (iCaRL's 144 + 56 split, the baselines' exemplar rows,
 herding and val tails, PathNet's batch of 64 and its tournament's 256-row
-eval and tail, the tiny run's, the stream-cli run's eval tails) is held
-right after those phases, and A at 224 px at every size of the RecogSeq
-and stream224 runs, so every size the path used is held.
+eval and tail, the tiny run's, the stream-cli run's eval tails, the
+survey's batch of 100 and its tails) is held right after those phases,
+and A at 224 px at every size of the RecogSeq and stream224 runs, so
+every size the path used is held.
 
 Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
 before the last is the ``{"kernels": [...]}`` record (A in float32, B1 and
@@ -143,8 +161,8 @@ B2 in float32 and bfloat16; ``ms`` warm, ``cold_ms`` on a cold L2, summed
 over the step's shapes, ``shape_routes`` the route of each): ``launches``
 is the count of the ``cli`` run, ``launches_framework``,
 ``launches_methods``, ``launches_rehearsal``, ``launches_masks``,
-``launches_alexnet``, ``launches_streaming`` and ``launches_dp`` (per leg
-and rank) hold each run's own count
+``launches_alexnet``, ``launches_streaming``, ``launches_dp`` (per leg
+and rank) and ``launches_survey`` (per variant) hold each run's own count
 (in a partial run the counts are null for the phases that did not run;
 A's rows at AlexNet's shape are under ``shapes``), ``held_batches`` the
 batch sizes held against the plain versions; the last line is
@@ -166,6 +184,7 @@ import time
 
 import torch
 
+from clsurvey_torch.utils.device import describe
 from clsurvey_torch.utils.devtime import cold_ms, kernel_us, time_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -199,14 +218,6 @@ REHEARSAL_BATCHES = (1, 67, 128, 1024)
 
 def log(*msg) -> None:
     print(*msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -3268,6 +3279,172 @@ def phase_dp(card: str) -> dict:
             "sizes": bench["sizes"] | cli["sizes"]}
 
 
+SURVEY_TASKS = 3
+SURVEY_EPOCHS = 2
+# the survey script's protocol (Phase 1 on two learning rates, Phase 2 up
+# to two attempts) at its default data (10 classes, 64 / 32 / 32 rows a
+# class, 64 px) and batch, cut in depth only
+SURVEY_ARGV = [
+    "--tasks", str(SURVEY_TASKS), "--epochs", str(SURVEY_EPOCHS),
+    "--lr_grid", "5e-2,1e-2", "--max_attempts", "2",
+    "--epochs_override", f"HAT={SURVEY_EPOCHS}",
+    "--epochs_override", f"pathnet={SURVEY_EPOCHS}",
+    "--shp", f"pathnet=8;{SURVEY_EPOCHS}", "--device", "cuda"]
+SURVEY_CUTS = {
+    "tasks": f"10 -> {SURVEY_TASKS}",
+    "epochs a task": f"12 -> {SURVEY_EPOCHS}",
+    "HAT epochs": f"60 -> {SURVEY_EPOCHS} (--epochs_override)",
+    "pathnet epochs": f"30 -> {SURVEY_EPOCHS} (--epochs_override)",
+    "pathnet generations": f"5 -> {SURVEY_EPOCHS}, one epoch a candidate "
+                           f"(--shp pathnet=8;{SURVEY_EPOCHS})",
+    "timing_mode": "finetuning only, 2 tasks, 100 train rows a class, "
+                   "1 attempt"}
+SURVEY_TIMING_ARGV = ["--methods", "finetuning", "--tasks", "2", "--n",
+                      "100", "--max_attempts", "1", "--device", "cuda"]
+
+
+def _survey_main(argv: list, records: dict) -> None:
+    """``run_survey_demo.main(argv)``, each CLI run it makes with the
+    kernels' counters zeroed just before and read just after (into
+    ``records``, by method)."""
+    from clsurvey_torch.framework import main as cli_main
+    from clsurvey_torch.ops import _kernels
+    from clsurvey_torch.scripts import run_survey_demo as rsd
+
+    real_main = cli_main.main
+
+    def counted(args):
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        manager = real_main(args)
+        torch.cuda.synchronize()
+        key = ("SI dump" if args.runmode == "first_task_basemodel_dump"
+               else args.method_name)
+        records[key] = {
+            "seconds": time.perf_counter() - t0,
+            "launches": dict(_kernels.LAUNCHES),
+            "batches": sorted(set().union(*_kernels.BATCHES.values()))}
+        return manager
+
+    cli_main.main = counted
+    try:
+        rsd.main(argv)
+    finally:
+        cli_main.main = real_main
+
+
+def _table_rows(md: str) -> list:
+    """The method names of a survey table's rows (after its header)."""
+    lines = [ln for ln in md.splitlines() if ln.startswith("| ")]
+    return [ln.split("|")[1].strip() for ln in lines[1:]]
+
+
+def phase_survey(card: str) -> dict:
+    """The survey's scripts on the card (``PHASES``' docstring entry 11).
+    Returns {"launches": {variant: launches}, "sizes": batch sizes}."""
+    import importlib.util
+
+    from clsurvey_torch.scripts import hd200_family_report as family
+    from clsurvey_torch.scripts import run_survey_demo as rsd
+    from clsurvey_torch.scripts import run_timing_mode as timing
+    from clsurvey_torch.utils import config
+
+    figures = importlib.util.find_spec("matplotlib") is not None
+    log("survey: matplotlib " + ("imports: the figures are rendered"
+                                 if figures else
+                                 "is not installed: the script renders "
+                                 "the table, rows and summary without "
+                                 "the figures"))
+    log(json.dumps({"survey_cuts": SURVEY_CUTS, "card": card}))
+    variants = [name for name, _, _ in rsd.METHODS]
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["CLSURVEY_ROOT"] = root
+        config.set_config(None)
+        out = os.path.join(root, "survey", "survey_demo")
+        records: dict = {}
+        log("survey: python -m clsurvey_torch.scripts.run_survey_demo",
+            " ".join(SURVEY_ARGV))
+        t0 = time.perf_counter()
+        _survey_main(SURVEY_ARGV, records)
+        sweep_s = time.perf_counter() - t0
+        with open(out + "_status.json") as f:
+            status = json.load(f)
+        failed = {m: status.get(m) for m in variants
+                  if not status.get(m, {}).get("ok")}
+        if failed:
+            raise AssertionError(f"survey: variants failed: {failed}")
+        with open(out + "_rows.json") as f:
+            rows = json.load(f)
+        with open(out + ".md") as f:
+            table = _table_rows(f.read())
+        if sorted(table) != sorted(variants) or sorted(rows) != \
+                sorted(variants):
+            raise AssertionError(f"survey: table rows {table}, row store "
+                                 f"{sorted(rows)}; want {variants}")
+        keys = {"exp", "avg_acc", "avg_forgetting", "curves", "task_count",
+                "hyperparams"}
+        for name, row in rows.items():  # every task trained and evaluated
+            if not keys <= set(row) or row["task_count"] != SURVEY_TASKS:
+                raise AssertionError(f"survey: row {name}: {row}")
+        want = [out + "_summary.txt"] + (
+            [out + "_acc.png", out + "_forgetting.png"] if figures else [])
+        missing = [p for p in want if not os.path.isfile(p)]
+        if missing:
+            raise AssertionError(f"survey: not rendered: {missing}")
+        for name in variants:
+            rec = records[name]
+            # PathNet pools with F.max_pool2d, as the JAX package pools it
+            # with XLA's reduce_window: no pool kernel on its path
+            zero = sorted(k for k, n in rec["launches"].items() if n <= 0)
+            if zero != (["pool_bwd", "pool_fwd"] if name == "pathnet"
+                        else []):
+                raise AssertionError(f"survey: {name} launched "
+                                     f"{rec['launches']}")
+        stamps = {k: (r.get("commit"), r.get("date"))
+                  for k, r in rows.items()}
+        t1 = time.perf_counter()
+        _survey_main(SURVEY_ARGV + ["--postprocess_only"], {})
+        render_s = time.perf_counter() - t1
+        with open(out + "_rows.json") as f:
+            again = {k: (r.get("commit"), r.get("date"))
+                     for k, r in json.load(f).items()}
+        if again != stamps:
+            raise AssertionError(f"survey: a second render moved the rows' "
+                                 f"commit/date: {stamps} -> {again}")
+
+        log("survey: python -m clsurvey_torch.scripts.run_timing_mode",
+            " ".join(SURVEY_TIMING_ARGV))
+        t2 = time.perf_counter()
+        timing.main(SURVEY_TIMING_ARGV)
+        timing_s = time.perf_counter() - t2
+        with open(os.path.join(root, "survey", "timing_mode.md")) as f:
+            lines = f.read().splitlines()
+        task_rows = [ln for ln in lines if "| task_" in ln]
+        if card not in lines[0] or len(task_rows) != 2:
+            raise AssertionError(f"survey: timing table {lines}")
+        for ln in [lines[0]] + task_rows:
+            log("  " + ln)
+
+        _, checks = family.build_report(rows)
+        log("survey: family checks (not held at 2 epochs): " + json.dumps(
+            {fid: ok for fid, _, ok in checks}))
+    seen = set()
+    for rec in records.values():
+        seen.update(rec["batches"])
+    log(json.dumps({
+        "survey": {name: {"seconds": records[name]["seconds"],
+                          "avg_acc": rows[name]["avg_acc"],
+                          "avg_forgetting": rows[name]["avg_forgetting"],
+                          "launches": records[name]["launches"]}
+                   for name in variants},
+        "si_dump_s": records["SI dump"]["seconds"], "sweep_s": sweep_s,
+        "render_s": render_s, "timing_mode_s": timing_s,
+        "figures": figures, "batches": sorted(seen), "cuts": SURVEY_CUTS,
+        "card": card}))
+    return {"launches": {name: records[name]["launches"]
+                         for name in variants}, "sizes": seen}
+
+
 def phase_protocol(card: str) -> None:
     """bench.py's workload through the port's Engine: small_VGG9 at 64 px,
     20k random uint8 rows, batch 200, lr 5e-3, flips on; best of three
@@ -3343,7 +3520,7 @@ def phase_protocol(card: str) -> None:
 
 
 PHASES = ("card", "kernels", "cli", "framework", "methods", "rehearsal",
-          "masks", "alexnet", "streaming", "dp", "protocol")
+          "masks", "alexnet", "streaming", "dp", "survey", "protocol")
 
 
 def main(argv=None) -> int:
@@ -3370,7 +3547,7 @@ def main(argv=None) -> int:
 
 
 def run(phases: list) -> int:
-    card = card_line()
+    card = describe("cuda")
 
     def timed(name, run, *args):
         t0 = time.perf_counter()
@@ -3384,7 +3561,7 @@ def run(phases: list) -> int:
     timed("card", phase_card, card)
     # None: the phase did not run
     checks = launches = fw_launches = method_launches = None
-    reh_launches = mask_launches = alex = stream = dp = None
+    reh_launches = mask_launches = alex = stream = dp = survey = None
     seen = set()  # batch sizes the rehearsal and masks phases used
     if "kernels" in phases:
         checks = timed("kernels", phase_kernels)
@@ -3419,12 +3596,16 @@ def run(phases: list) -> int:
     if "dp" in phases:
         dp = timed("dp", phase_dp, card)
         seen.update(dp["sizes"])
+    if "survey" in phases:
+        survey = timed("survey", phase_survey, card)
+        seen.update(survey["sizes"])
     held = set(checks["held_batches"]) if checks else set()
     late = sorted(seen - held - {PREPROCESS_SHAPE[0]})
     if late:  # a size the kernels phase did not hold: hold it now
         check_batches(torch.Generator(device="cuda").manual_seed(1), late)
         log(f"kernels agree at the other batch sizes the rehearsal, "
-            f"masks, alexnet, streaming and dp phases used: {late}")
+            f"masks, alexnet, streaming, dp and survey phases used: "
+            f"{late}")
         if checks:
             checks["held_batches"] = sorted(held | set(late))
     if "protocol" in phases:
@@ -3462,6 +3643,8 @@ def run(phases: list) -> int:
                  m: n[name] for m, n in stream["launches"].items()},
              "launches_dp": dp and {
                  m: n[name] for m, n in dp["launches"].items()},
+             "launches_survey": survey and {
+                 m: n[name] for m, n in survey["launches"].items()},
              "held_batches": checks["held_batches"]}
             for name in sources for dtype in dtypes[name]]}))
     if set(phases) >= set(PHASES):

@@ -15,6 +15,8 @@ the rank's card, ``cuda:{LOCAL_RANK % device_count}``."""
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 from clsurvey_torch.parallel import mesh as mesh_lib
@@ -37,3 +39,18 @@ def resolve(device: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev
+
+
+def describe(device: str | torch.device) -> str:
+    """The device a record was measured on: a card's name and power limit
+    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (a card below its 700 W limit runs slower under load), or
+    ``CPU``. Raises where ``nvidia-smi`` cannot answer for a card."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return "CPU"
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={dev.index or 0}",
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

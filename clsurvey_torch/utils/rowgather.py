@@ -20,22 +20,18 @@ tell.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 import warnings
 
 import numpy as np
 import torch
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_REPO, "native", "rowgather.cpp")
-BUILD_DIR = os.path.join(_REPO, "clsurvey_torch", "_build")
-# native/Makefile's CXXFLAGS and its rowgather rule's extra flags
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
+from clsurvey_torch.utils import native
+
+SOURCE = os.path.join(native.NATIVE_DIR, "rowgather.cpp")
+# native/Makefile's rowgather rule
+CXX_FLAGS = native.MAKEFILE_FLAGS + ("-pthread", "-shared")
 
 ROUTES = {"native": 0, "numpy": 0}
 
@@ -50,42 +46,18 @@ def reset_routes() -> None:
             ROUTES[name] = 0
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"librowgather-{digest.hexdigest()[:16]}.so")
-
-
-def _build(out: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp,
-                        SOURCE], check=True, capture_output=True, text=True)
-        os.replace(tmp, out)  # atomic: other processes see all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-
-
 def _load() -> ctypes.CDLL | None:
     """The loaded library, built first if needed; None if the build
     failed (warned once)."""
     global _LIB, _BUILD_ERROR
     with _LOCK:
         if _LIB is None and _BUILD_ERROR is None:
-            out = library_path()
             try:
-                if not os.path.isfile(out):
-                    _build(out)
-                lib = ctypes.CDLL(out)
-            except (OSError, subprocess.CalledProcessError) as e:
-                _BUILD_ERROR = getattr(e, "stderr", None) or str(e)
-                warnings.warn(f"rowgather: building {SOURCE} failed, every "
-                              f"gather takes the numpy route:\n"
-                              f"{_BUILD_ERROR}")
+                lib = native.load(SOURCE, CXX_FLAGS, "rowgather")
+            except RuntimeError as e:
+                _BUILD_ERROR = str(e)
+                warnings.warn(f"rowgather: every gather takes the numpy "
+                              f"route: {_BUILD_ERROR}")
                 return None
             u8p = ctypes.POINTER(ctypes.c_uint8)
             i64p = ctypes.POINTER(ctypes.c_int64)
