@@ -309,7 +309,7 @@ class GEMRule(_MemoryRule):
                     reduction="none")
                 loss = mesh_lib.share((ce * w).sum() / n_valid.clamp_min(1),
                                       sh.sum_scale)
-                g = _flat(torch.autograd.grad(loss, leaves))
+                g = _flat(mesh_lib.grads_of(loss, leaves))
                 acc = g if acc is None else acc + g
             rows.append(acc)
         return mesh_lib.all_reduce_sum([torch.stack(rows)], ctx.mesh)[0]

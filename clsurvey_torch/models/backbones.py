@@ -17,7 +17,9 @@ Counterpart of ``clsurvey_tpu/models/backbones.py``:
   with the layer input, to ``dtype`` at each conv and dense layer; the
   returned features are float32;
 - batch-norm sits between conv and ReLU and computes in float32 whatever
-  ``dtype`` is (flax ``BatchNorm(dtype=float32)``). The module holds only
+  ``dtype`` is (flax ``BatchNorm(dtype=float32)``), float64 in a float64
+  model (a reference pass on the CPU; its running statistics stay
+  float32). The module holds only
   ``scale`` and ``bias``; the running statistics are an argument, a flat
   dict ``{'features.bn_<i>.mean' | '.var': (C,)}``, and a train-mode call
   returns the new ones, as flax's ``mutable=['batch_stats']`` does. The
@@ -160,13 +162,18 @@ class VGGBackbone(nn.Module):
             mesh=None):
         layer = self.features[f"bn_{i}"]
         mean_name, var_name = bn_stat_names(i)
-        x = _cast(x, torch.float32)
+        x = _cast(x, torch.float64 if x.dtype == torch.float64
+                  else torch.float32)
         if not train:
             # flax's formula, elementwise: (x - mean) * (rsqrt(var + eps)
             # * scale) + bias. Safe under torch.func.vmap(grad).
-            mul = torch.rsqrt(batch_stats[var_name] + BN_EPS) * layer.scale
-            return ((x - batch_stats[mean_name].view(1, -1, 1, 1))
-                    * mul.view(1, -1, 1, 1) + layer.bias.view(1, -1, 1, 1))
+            mean, var, scale, bias = (
+                _cast(t, x.dtype) for t in (
+                    batch_stats[mean_name], batch_stats[var_name],
+                    layer.scale, layer.bias))
+            mul = torch.rsqrt(var + BN_EPS) * scale
+            return ((x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+                    + bias.view(1, -1, 1, 1))
         if mesh is not None and mesh.distributed:
             return self._bn_global(x, layer, batch_stats, mean_name,
                                    var_name, new_stats, mesh)
@@ -174,9 +181,11 @@ class VGGBackbone(nn.Module):
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             for name, batch in ((mean_name, mean), (var_name, var)):
                 new_stats[name] = (BN_MOMENTUM * batch_stats[name]
-                                   + (1.0 - BN_MOMENTUM) * batch)
-        return F.batch_norm(x, None, None, layer.scale, layer.bias,
-                            training=True, eps=BN_EPS)
+                                   + (1.0 - BN_MOMENTUM)
+                                   * batch.to(batch_stats[name].dtype))
+        return F.batch_norm(x, None, None, _cast(layer.scale, x.dtype),
+                            _cast(layer.bias, x.dtype), training=True,
+                            eps=BN_EPS)
 
     @staticmethod
     def _bn_global(x, layer, batch_stats, mean_name, var_name, new_stats,
@@ -201,7 +210,8 @@ class VGGBackbone(nn.Module):
         with torch.no_grad():
             for name, batch in ((mean_name, mean), (var_name, var)):
                 new_stats[name] = (BN_MOMENTUM * batch_stats[name]
-                                   + (1.0 - BN_MOMENTUM) * batch.detach())
+                                   + (1.0 - BN_MOMENTUM) * batch.detach()
+                                   .to(batch_stats[name].dtype))
         mul = torch.rsqrt(var + BN_EPS) * layer.scale
         return dev * mul.view(1, -1, 1, 1) + layer.bias.view(1, -1, 1, 1)
 

@@ -14,7 +14,10 @@ Counterpart of ``clsurvey_tpu/ops/importance.py``, resident path:
   as ``torch.func.vmap(torch.func.grad(...))`` over chunks of samples
   instead of N single-sample backward passes. The backbone's pools take
   part through the ``vmap`` rule of ``ops/pool.py``: one launch of kernel
-  B1 or B2 per pool and chunk.
+  B1 or B2 per pool and chunk; on the card its float32 convs through
+  ``ops/conv.py``'s exact weight gradient (``Conv2dBackward``'s ``vmap``
+  rule: the samples folded into the batch, one batched GEMM per conv and
+  chunk).
 - mode-IMM: the precision of one task's model over its train and val
   splits, with labels sampled from the model's own softmax
   (ref:src/methods/IMM/merge.py:155-185).
@@ -204,7 +207,8 @@ def _mas_local(ctx, params, batch_stats, heads_bank, task: int, images_u8,
         g = per_sample_grads(p, x)
         for k, gk in g.items():
             # omega += sum_v w_v |g_v| / N
-            omega[k] += torch.tensordot(cw, gk.abs(), dims=1) / n_total
+            omega[k] += torch.tensordot(cw.to(gk.dtype), gk.abs(),
+                                        dims=1) / n_total
     return omega
 
 

@@ -336,11 +336,34 @@ def global_grads(loss, leaves: list, mesh: Mesh | None = None,
     rank's autograd, then one all-reduce (:func:`all_reduce_sum`), the
     counterpart of the psum GSPMD inserts. An unused leaf's gradient is
     zeros (``allow_unused``)."""
-    grads = torch.autograd.grad(loss, leaves, allow_unused=allow_unused)
+    grads = grads_of(loss, leaves, allow_unused)
     if allow_unused:
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
-    return all_reduce_sum(list(grads), mesh)
+    return all_reduce_sum(grads, mesh)
+
+
+def grads_of(loss, leaves: list, allow_unused: bool = False) -> list:
+    """d ``loss`` / d ``leaves``, owned by the caller alone: accumulated
+    into each leaf's ``.grad`` and taken out again (None for an unused
+    leaf, which raises unless ``allow_unused``).
+
+    ``torch.autograd.grad`` returns the same values, but its finished
+    graph task holds them too (as its future's value) until the thread
+    that completed it lets go. For a CUDA graph that is autograd's device
+    thread, which wakes the caller first: under host load it can be off
+    the CPU for milliseconds, and the step's gradients then outlive the
+    step into the next forward, whose peak memory depended on it."""
+    for leaf in leaves:
+        leaf.grad = None
+    torch.autograd.backward(loss, inputs=list(leaves))
+    grads = [leaf.grad for leaf in leaves]
+    for leaf in leaves:
+        leaf.grad = None
+    if not allow_unused and any(g is None for g in grads):
+        raise RuntimeError("a leaf does not take part in the loss "
+                           "(allow_unused=False)")
+    return grads
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -24,7 +24,9 @@ on the CPU (tiny_CNN_cl_32_32_BN_DROP at 32 px, float32, numpy-made inputs).
   BN_DROP model: eval mode, running statistics, within rtol 1e-4 / atol
   1e-7 of the JAX package's;
 - a bf16 BN model normalizes in float32, and a dropout model without masks
-  raises;
+  raises; a float64 one (the card checks' CPU reference) normalizes in
+  float64, 1e-12 of a float64 batch-norm written out, and keeps float32
+  running statistics;
 - the finetuning CLI on ``tiny_CNN_cl_32_32_BN_DROP`` on the CPU, two tasks,
   two epochs, with ``--test``: its best models, read by the JAX package and
   run under the flax backbone with their ``batch_stats``, score the val
@@ -402,6 +404,36 @@ def test_bf16_bn_normalizes_in_float32_and_dropout_needs_masks():
     assert all(v.dtype == torch.float32 for v in new_stats.values())
     with pytest.raises(ValueError, match="keep-mask"):
         backbone(x, stats, train=True)
+
+
+def test_float64_bn_normalizes_in_float64_with_float32_statistics():
+    spec = treg.parse_model_name("", NAME, (PX, PX),
+                                 compute_dtype=torch.float64)
+    backbone = spec.make_backbone()
+    with torch.no_grad():
+        for name, layer in backbone.features.items():
+            if name.startswith("bn_"):
+                layer.scale.uniform_(0.5, 1.5)
+                layer.bias.uniform_(-0.5, 0.5)
+    stats = backbone.init_batch_stats()
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (6, 8, 5, 5)))
+    for train in (True, False):
+        new_stats = {}
+        got = backbone._bn(x, 0, stats, train, new_stats)
+        mean, var = ((x.mean((0, 2, 3)), x.var((0, 2, 3), correction=0))
+                     if train else (stats["features.bn_0.mean"].double(),
+                                    stats["features.bn_0.var"].double()))
+        layer = backbone.features["bn_0"]
+        want = ((x - mean.view(1, -1, 1, 1))
+                * torch.rsqrt(var.view(1, -1, 1, 1) + 1e-5)
+                * layer.scale.double().view(1, -1, 1, 1)
+                + layer.bias.double().view(1, -1, 1, 1))
+        assert got.dtype == torch.float64
+        assert float((got - want).abs().max()) <= \
+            1e-12 * float(want.abs().max())
+        assert all(v.dtype == torch.float32 for v in new_stats.values())
+        assert len(new_stats) == (2 if train else 0)
 
 
 def test_bn_drop_finetune_cli_on_the_cpu(tmp_path, monkeypatch):

@@ -7,10 +7,13 @@ convolution (``lax.conv_general_dilated``, NHWC / HWIO, as flax's
 ``jax.enable_x64``, and against autograd of ``F.conv2d``, at AlexNet's and
 small_VGG9's kernel sizes, strides and paddings, with one row a chunk and
 with every row in one chunk; :class:`Conv2dExactWeightGrad`'s whole
-backward (input, weight, bias) against ``F.conv2d``'s; and
-:func:`conv2d`'s dispatch (``F.conv2d`` on the CPU and under
-``torch.func``). Tolerance: 1e-12 of the largest entry (float64 sums in
-other orders)."""
+backward (input, weight, bias) against ``F.conv2d``'s; its per-sample
+gradients under ``torch.func.vmap(torch.func.grad)`` (MAS's route, its
+``vmap`` rules) and :func:`weight_grad`'s per-sample form against per-sample autograd of ``F.conv2d`` and
+``jax.vmap(jax.grad)`` of the JAX package's convolution; and
+:func:`conv2d`'s dispatch (``F.conv2d`` on the CPU, under ``torch.func``
+too). Tolerance: 1e-12 of the largest entry (float64 sums in other
+orders)."""
 
 import jax
 import jax.numpy as jnp
@@ -84,6 +87,28 @@ def test_weight_grad_matches_jax_and_autograd(name, chunk_bytes):
     _close(got, want, f"{name} against autograd of F.conv2d")
 
 
+@pytest.mark.parametrize("chunk_bytes", [1, tconv.CHUNK_BYTES],
+                         ids=["sample_a_chunk", "one_chunk"])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_weight_grad_per_sample(name, chunk_bytes):
+    """``weight_grad(samples=3)`` over 3 samples of 2 rows each, one after
+    another: each sample's gradient, against :func:`weight_grad` of that
+    sample's rows and ``jax.grad``."""
+    cin, cout, k, st, p, hw = SHAPES[name]
+    x, w, dy = _inputs(SHAPES[name], n=6, seed=5)
+    w_shape = (cout, cin, k, k)
+    got = tconv.weight_grad(_nchw(x), _nchw(dy), w_shape, st, p, samples=3,
+                            chunk_bytes=chunk_bytes)
+    assert got.shape == (3, *w_shape)
+    for v in range(3):
+        rows = slice(2 * v, 2 * v + 2)
+        _close(got[v], tconv.weight_grad(_nchw(x[rows]), _nchw(dy[rows]),
+                                         w_shape, st, p),
+               f"{name} sample {v} against its rows alone")
+        _close(got[v], _jax_weight_grad(x[rows], w, dy[rows], st, p)
+               .transpose(3, 2, 0, 1), f"{name} sample {v} against jax.grad")
+
+
 @pytest.mark.parametrize("input_grad", [True, False])
 @pytest.mark.parametrize("name", ["alexnet.conv_0", "alexnet.conv_1",
                                   "small_VGG9.conv_1"])
@@ -125,3 +150,67 @@ def test_conv2d_keeps_f_conv2d_on_the_cpu_and_under_torch_func():
         (want,) = torch.autograd.grad(loss(w_i, xt[i]), w_i)
         torch.testing.assert_close(per_sample[i], want, rtol=1e-5,
                                    atol=1e-5)
+
+
+# (C_in, C_out, kernel, stride, padding, input side): AlexNet's three
+# kernel / stride / padding triples and small_VGG9's, 2-4 channels
+VMAP_SHAPES = {
+    "alexnet.conv_0": (3, 4, 11, 4, 2, 19),
+    "alexnet.conv_1": (4, 3, 5, 1, 2, 7),
+    "alexnet.conv_2": (3, 2, 3, 1, 1, 5),
+    "small_VGG9.conv_0": (3, 4, 3, 1, 1, 8),
+    "small_VGG9.conv_1": (4, 4, 3, 1, 1, 6),
+}
+
+
+def _jax_per_sample_grads(x, w, b, dy, st, p):
+    """``jax.vmap(jax.grad)`` of <conv(x_v, w) + b, dy_v> per sample v,
+    with respect to the row, the kernel and the bias, NHWC / HWIO, in
+    float64."""
+    with jax.enable_x64(True):
+        def f(row, kernel, bias, cot):
+            y = jax.lax.conv_general_dilated(
+                row[None], kernel, (st, st), [(p, p), (p, p)],
+                dimension_numbers=("NHWC", "HWIO", "NHWC")) + bias
+            return jnp.sum(y * cot[None])
+
+        grads = jax.vmap(jax.grad(f, argnums=(0, 1, 2)),
+                         in_axes=(0, None, None, 0))(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(dy))
+        return [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", list(VMAP_SHAPES))
+def test_function_per_sample_grads_under_vmap(name, n):
+    """MAS's route: ``vmap(grad)`` through :class:`Conv2dExactWeightGrad`
+    (its ``vmap`` rules: the samples folded into the batch)
+    gives each sample's input, weight and bias gradient."""
+    cin, cout, k, st, p, hw = VMAP_SHAPES[name]
+    x, w, dy = _inputs(VMAP_SHAPES[name], n=n, seed=3)
+    b = np.random.default_rng(4).normal(size=cout)
+    xt, dyt = _nchw(x), _nchw(dy)
+    wt = torch.from_numpy(w).permute(3, 2, 0, 1).contiguous()
+    bt = torch.from_numpy(b)
+    calls = []
+
+    def loss(row, weight, bias, cot):
+        y = tconv.Conv2dExactWeightGrad.apply(row[None], weight, bias, st, p)
+        calls.append(y.shape)
+        return (y * cot[None]).sum()
+
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)),
+                          in_dims=(0, None, None, 0))(xt, wt, bt, dyt)
+    assert len(calls) == 1  # one batched call, not one per sample
+    jx, jw, jb = _jax_per_sample_grads(x, w, b, dy, st, p)
+    want_jax = (jx.transpose(0, 3, 1, 2), jw.transpose(0, 4, 3, 1, 2), jb)
+    for i in range(n):
+        leaves = [t.clone().requires_grad_() for t in (xt[i:i + 1], wt, bt)]
+        want = torch.autograd.grad(
+            F.conv2d(leaves[0], leaves[1], leaves[2], stride=st, padding=p),
+            leaves, dyt[i:i + 1])
+        for j, what in enumerate(("input", "weight", "bias")):
+            _close(got[j][i], want[j][0] if j == 0 else want[j],
+                   f"{name} sample {i} {what} against F.conv2d")
+            _close(got[j][i], want_jax[j][i],
+                   f"{name} sample {i} {what} against jax.vmap(jax.grad)")

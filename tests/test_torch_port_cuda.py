@@ -20,7 +20,9 @@ need not have; nothing here uses it.)
   a per-sample loop;
 - the backbone on the card against the same backbone on the CPU;
 - the port's float32 conv (``ops/conv.py``: its weight gradient a GEMM)
-  against float64 on the card, at AlexNet's 5x5 conv."""
+  against float64 on the card, at AlexNet's 5x5 conv, batched and per
+  sample under ``vmap(grad)``;
+- ``parallel/mesh.py:global_grads``: its gradients the caller's alone."""
 
 import numpy as np
 import pytest
@@ -207,3 +209,57 @@ def test_conv_weight_grad_is_float32_exact_on_the_card(cuda):
     for g, e in zip(got, want):
         top = float(e.abs().max())
         assert float((g.double() - e).abs().max()) <= 1e-4 * top
+
+
+def test_conv_per_sample_grads_are_float32_exact_on_the_card(cuda):
+    """MAS's route: ``vmap(grad)`` over 16 samples of one row through the
+    port's conv (the ``Conv2dExactWeightGrad`` vmap rule) at AlexNet's
+    conv_1: each sample's input and weight gradient in float32 within 1e-4
+    of its largest float64 entry."""
+    from clsurvey_torch.ops.conv import conv2d
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.relu(torch.randn(16, 64, 27, 27, generator=gen, device=cuda,
+                               dtype=torch.float64))
+    w = torch.randn(192, 64, 5, 5, generator=gen, device=cuda,
+                    dtype=torch.float64) * 0.035
+    dy = torch.randn(16, 192, 27, 27, generator=gen, device=cuda,
+                     dtype=torch.float64)
+
+    def per_sample(fn, *ts):
+        def loss(row, weight, cot):
+            return (fn(row[None], weight, padding=2) * cot[None]).sum()
+
+        return torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)),
+                               in_dims=(0, None, 0))(*ts)
+
+    want = per_sample(torch.nn.functional.conv2d, x, w, dy)
+    got = per_sample(conv2d, *(t.float().contiguous(
+        memory_format=torch.channels_last) for t in (x, w, dy)))
+    for g, e in zip(got, want):
+        for i in range(16):
+            top = float(e[i].abs().max())
+            assert float((g[i].double() - e[i]).abs().max()) <= 1e-4 * top
+
+
+def test_gradients_are_the_callers_alone_on_the_card(cuda):
+    """``parallel/mesh.py:global_grads`` on the card, 200 calls in a row:
+    each gradient it returns is referenced by the caller alone (use count
+    1) the moment it returns, and no leaf keeps a ``.grad``. (The
+    gradients of ``torch.autograd.grad`` were also held by its graph task
+    until autograd's device thread let go of it.)"""
+    from clsurvey_torch.parallel import mesh as mesh_lib
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    leaves = [torch.randn(512, 512, generator=gen, device=cuda)
+              .requires_grad_() for _ in range(4)]
+    x = torch.randn(256, 512, generator=gen, device=cuda)
+    counts = set()
+    for _ in range(200):
+        h = x
+        for w in leaves:
+            h = torch.tanh(h @ w)
+        grads = mesh_lib.global_grads(h.square().sum(), leaves)
+        counts.update(g._use_count() for g in grads)
+        assert all(w.grad is None for w in leaves)
+    assert counts == {1}

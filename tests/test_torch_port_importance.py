@@ -13,8 +13,10 @@ import torch
 
 from clsurvey_torch.engine import train as ttrain
 from clsurvey_torch.methods.base import UpdateRule as TRule
+from clsurvey_torch.models import backbones as tbackbones
 from clsurvey_torch.models import registry as treg
 from clsurvey_torch.models.convert import params_from_jax, params_to_jax
+from clsurvey_torch.ops import conv as tconv
 from clsurvey_torch.ops import importance as timp
 from clsurvey_tpu.engine import train as jtrain
 from clsurvey_tpu.methods.base import UpdateRule as JRule
@@ -89,6 +91,46 @@ def test_mas_importance_matches_the_jax_package(setup, task, chunk):
     got = timp.mas_importance(ctx_t, params_from_jax(model["params"]), {},
                               model["heads"], task, images, chunk=chunk)
     _assert_tree_close(got, want, rtol=1e-4, atol=1e-7)
+
+
+def test_mas_through_the_exact_conv_function_matches_f_conv2d(
+        setup, monkeypatch):
+    """MAS's ``vmap(grad)`` with every conv forced through
+    ``Conv2dExactWeightGrad`` (the card's float32 route, its weight
+    gradient one batched GEMM a chunk) against the CPU's ``F.conv2d``
+    route, both with the convs in float64: 1e-12 of each leaf's largest
+    entry."""
+    model, _, _, images, _ = setup
+    spec = treg.parse_model_name("", NAME, (PX, PX),
+                                 compute_dtype=torch.float64)
+    ctx = ttrain.make_context(spec, task=0, n_tasks=2, class_counts=COUNTS,
+                              mean=MEAN, std=STD, update_rule=TRule(),
+                              augment=False, device="cpu")
+    params = {k: v.double()
+              for k, v in params_from_jax(model["params"]).items()}
+
+    def omega():  # 20 rows in chunks of 8: the last one ragged
+        return timp.mas_importance(ctx, params, {}, model["heads"], 1,
+                                   images[:20], chunk=8)
+
+    want = omega()
+    grads = []
+    monkeypatch.setattr(
+        tbackbones, "conv2d",
+        lambda x, w, b=None, stride=1, padding=0:
+        tconv.Conv2dExactWeightGrad.apply(x, w, b, stride, padding))
+    monkeypatch.setattr(tconv, "weight_grad",
+                        lambda *a, **k: grads.append(a[0].dtype)
+                        or _weight_grad(*a, **k))
+    got = omega()
+    n_convs = sum(name.startswith("conv_") for name in ctx.backbone.features)
+    assert grads == [torch.float64] * (3 * n_convs)  # a call a conv a chunk
+    for k, v in want.items():
+        tol = 1e-12 * float(v.abs().max())
+        assert float((got[k] - v).abs().max()) <= tol, k
+
+
+_weight_grad = tconv.weight_grad
 
 
 def test_fisher_is_the_squared_batch_sum_not_the_mean_of_squares(setup):

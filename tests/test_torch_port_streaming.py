@@ -17,7 +17,11 @@
 - EWC's Fisher and MAS's omega (rtol 1e-4, atol 1e-7, the resident
   importance tests') and the mode-IMM Fisher with the JAX run's labels
   handed in (rtol 1e-3, atol 1e-8, the IMM test's) streamed in both
-  packages."""
+  packages;
+- a streamed step's gradients belong to the step alone: dead when the
+  next step starts (the card's streamed peak memory depends on it)."""
+
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from clsurvey_torch.methods.base import UpdateRule as TRule
 from clsurvey_torch.models import registry as treg
 from clsurvey_torch.models.convert import params_from_jax, params_to_jax
 from clsurvey_torch.ops import importance as timp
+from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import rowgather
 from clsurvey_tpu.engine import train as jtrain
 from clsurvey_tpu.methods.base import UpdateRule as JRule
@@ -173,6 +178,81 @@ def test_streamed_epoch_equals_the_resident_epoch(name):
         assert torch.equal(a, b)
     assert m_s.keys() == m_r.keys()
     assert all(torch.equal(m_s[k], m_r[k]) for k in m_s)
+
+
+def test_a_steps_gradients_die_with_the_step(monkeypatch):
+    """``mesh_lib.global_grads`` hands the step gradients that nothing else
+    refers to (use count 1, no ``.grad`` left on a leaf), so over a
+    streamed epoch each step's gradients are dead (weakrefs) when the next
+    step starts, and after the epoch. ``torch.autograd.grad``'s were also
+    held by its finished graph task, which on the card autograd's device
+    thread released only when it next ran: under host load after the next
+    step's forward had begun, 36 MB over stream224's usual peak."""
+    _, ctx_t = _contexts(augment=True)
+    engine = ttrain.Engine(ctx_t)
+    images, labels = _rows(100)
+    refs, alive = [], []
+    real_grads, real_step = mesh_lib.global_grads, ttrain.Engine._train_step
+
+    def grads(loss, leaves, mesh=None, allow_unused=False):
+        out = real_grads(loss, leaves, mesh, allow_unused)
+        assert [g._use_count() for g in out] == [1] * len(out)
+        assert all(leaf.grad is None for leaf in leaves)
+        refs.extend(weakref.ref(g) for g in out)
+        return out
+
+    def step(self, *args, **kwargs):
+        alive.append(sum(r() is not None for r in refs))
+        return real_step(self, *args, **kwargs)
+
+    monkeypatch.setattr(mesh_lib, "global_grads", grads)
+    monkeypatch.setattr(ttrain.Engine, "_train_step", step)
+    engine.train_epoch_chunked(
+        _port_state(_model(), ctx_t), images, labels,
+        np.random.default_rng(1).permutation(100),
+        torch.Generator().manual_seed(4), 1e-2, 16, 48,
+        ttrain.ChunkFeed(images.shape[1:], 48, "cpu"))
+    assert alive == [0] * 9  # 144 padded rows, batches of 16
+    assert refs and all(r() is None for r in refs)
+
+
+@pytest.mark.parametrize("allow_unused", [False, True])
+def test_global_grads_take_no_graph_tasks_value(monkeypatch, allow_unused):
+    """The mechanism behind the test above, which the CPU cannot show
+    failing (its backward runs on the caller's thread, so nothing outlives
+    the call there): ``global_grads`` takes the gradients through
+    ``.grad``, never as the value of ``torch.autograd.grad``'s graph task,
+    which on the card autograd's device thread held until it next ran. The
+    same values as ``torch.autograd.grad``; an unused leaf's gradient is
+    zeros, or an error without ``allow_unused``."""
+    gen = torch.Generator().manual_seed(3)
+    leaves = [torch.randn(6, 6, generator=gen, dtype=torch.float64)
+              .requires_grad_() for _ in range(3)]
+    x = torch.randn(4, 6, generator=gen, dtype=torch.float64)
+    used = leaves if not allow_unused else leaves[:2]
+
+    def loss():
+        h = x
+        for w in used:
+            h = torch.tanh(h @ w)
+        return h.square().sum()
+
+    want = torch.autograd.grad(loss(), used)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("torch.autograd.grad called")
+
+    monkeypatch.setattr(torch.autograd, "grad", refused)
+    got = mesh_lib.global_grads(loss(), leaves, allow_unused=allow_unused)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if allow_unused:
+        assert torch.equal(got[2], torch.zeros(6, 6, dtype=torch.float64))
+    else:
+        with pytest.raises(RuntimeError, match="allow_unused"):
+            mesh_lib.global_grads(loss() + 0 * leaves[0].sum(),
+                                  leaves + [torch.ones(2).requires_grad_()])
+    assert all(leaf.grad is None for leaf in leaves)
 
 
 @pytest.mark.parametrize("n", [96, 100])
