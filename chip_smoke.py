@@ -185,7 +185,8 @@ import time
 import torch
 
 from clsurvey_torch.utils.device import describe
-from clsurvey_torch.utils.devtime import cold_ms, kernel_us, time_ms
+from clsurvey_torch.utils.devtime import (
+    cold_ms, device_events, kernel_us, time_ms)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MEAN = (0.485, 0.456, 0.406)
@@ -1974,8 +1975,7 @@ def alexnet_protocol(card: str) -> dict:
                                                 gen, 5e-3, ALEX_BS)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if "CUDA" in str(getattr(e, "device_type", ""))]
+        events = device_events(prof)
         device_ms = sum(kernel_us(prof).values()) / 1e3
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
         conv0 = _first_conv_ms(dtype, gen)
@@ -3547,8 +3547,7 @@ def phase_protocol(card: str) -> None:
                                                 gen, lr, bs)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if "CUDA" in str(getattr(e, "device_type", ""))]
+        events = device_events(prof)
         device_ms = sum(kernel_us(prof).values()) / 1e3
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         log(json.dumps({

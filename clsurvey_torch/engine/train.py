@@ -54,7 +54,13 @@ all-reduced once an epoch, eval's per-class counters once an evaluation.
 Train batches round down to a multiple of the ranks, eval batches up with
 padded rows of weight 0. ``train_task`` broadcasts the state at its start,
 takes every decision from all-reduced numbers, and writes and logs from
-the writer alone. Without a process group none of this runs."""
+the writer alone. Without a process group none of this runs.
+
+While a ``torch.profiler`` records, the engine's work is in spans
+(``utils/spans.py``): ``train.step`` around each step and ``eval`` around
+an evaluation, both with the card's time, and in a streamed epoch
+``stream.gather`` (the feed's thread) and ``stream.wait`` (the caller
+waiting for a chunk)."""
 
 from __future__ import annotations
 
@@ -78,7 +84,7 @@ from clsurvey_torch.models.registry import ModelSpec
 from clsurvey_torch.ops import preprocess as pp
 from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
-from clsurvey_torch.utils import io, orbax_io, rng as rng_lib, timing
+from clsurvey_torch.utils import io, orbax_io, rng as rng_lib, spans, timing
 from clsurvey_torch.utils.paths import (
     BEST_MODEL_FILENAME, EPOCH_CKPT_FILENAME)
 from clsurvey_torch.utils.rowgather import gather_rows
@@ -380,14 +386,16 @@ class Engine:
         the rule draws after them. Appends each step's metrics (tensors,
         not read back) to ``per_step``."""
         ctx = self.ctx
+        cuda = ctx.device.type == "cuda"
         for x, y in batches:
             b = int(x.shape[0])
-            flip = (torch.randint(0, 2, (b,), dtype=torch.uint8,
-                                  device=ctx.device, generator=gen)
-                    if ctx.augment else None)
-            state, metrics = self._train_step(
-                state, x, y, lr, flip, ctx.draw_dropout_masks(b, gen),
-                gen=gen)
+            with spans.span(spans.STEP, b, device=cuda):
+                flip = (torch.randint(0, 2, (b,), dtype=torch.uint8,
+                                      device=ctx.device, generator=gen)
+                        if ctx.augment else None)
+                state, metrics = self._train_step(
+                    state, x, y, lr, flip, ctx.draw_dropout_masks(b, gen),
+                    gen=gen)
             for k, v in metrics.items():
                 per_step.setdefault(k, []).append(v)
         return state
@@ -444,8 +452,6 @@ class Engine:
         ctx = self.ctx
         n = int(images.shape[0])
         batch_size = mesh_lib.round_eval_batch(batch_size, n, ctx.mesh.size)
-        y_all = torch.as_tensor(labels if target_labels is None
-                                else target_labels).to(ctx.device).long()
         if n_counter_classes is None:
             kernel_c = int(np.max(ctx.class_counts))
             n_counter_classes = (kernel_c * ctx.n_tasks
@@ -465,9 +471,13 @@ class Engine:
                                          x, False)
             return logits_of(feats)
 
-        pcc, pct = mesh_lib.count_hits(images, y_all, batch_size, logits_u8,
-                                       n_counter_classes, ctx.mesh)
-        per_class_c, per_class_t = pcc.cpu().numpy(), pct.cpu().numpy()
+        with spans.span("eval", n, device=ctx.device.type == "cuda"):
+            y_all = torch.as_tensor(labels if target_labels is None
+                                    else target_labels).to(ctx.device).long()
+            pcc, pct = mesh_lib.count_hits(images, y_all, batch_size,
+                                           logits_u8, n_counter_classes,
+                                           ctx.mesh)
+            per_class_c, per_class_t = pcc.cpu().numpy(), pct.cpu().numpy()
         acc = float(per_class_c.sum()) / max(float(per_class_t.sum()), 1.0)
         return acc, per_class_c, per_class_t
 
@@ -500,13 +510,15 @@ def _streamed_batches(feed: "ChunkFeed", images_np, labels: torch.Tensor,
     chunk ``c``. One generator for the whole epoch, so that no state of a
     chunk's start stays alive through the chunk's steps."""
     rows = feed.chunk_rows
+    load = spans.carry(feed.load)  # the gather's span on the gather thread
     with ThreadPoolExecutor(1) as pool:
-        pending = pool.submit(feed.load, images_np, perm[:rows], 0)
+        pending = pool.submit(load, images_np, perm[:rows], 0)
         for c in range(n_chunks):
-            pending.result()
+            with spans.span("stream.wait", feed.chunk_bytes):
+                pending.result()
             if c + 1 < n_chunks:  # gather and copy the next chunk now
                 pending = pool.submit(
-                    feed.load, images_np,
+                    load, images_np,
                     perm[(c + 1) * rows: (c + 2) * rows], c + 1)
             x, y = feed.chunk(c), labels[c * rows: (c + 1) * rows]
             for i in range(0, rows, batch_size):
@@ -547,6 +559,7 @@ class ChunkFeed:
         shape = (self.chunk_rows,) + tuple(row_shape)
         self.host = [torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
                      for _ in range(2)]
+        self.chunk_bytes = self.host[0].nbytes
         self.dev = ([torch.empty(shape, dtype=torch.uint8,
                                  device=self.device) for _ in range(2)]
                     if cuda else self.host)
@@ -560,7 +573,8 @@ class ChunkFeed:
         b = c % 2
         if self._copied[b] is not None:
             self._copied[b].synchronize()  # the pinned rows were copied
-        gather_rows(images_np, rows, out=self.host[b])
+        with spans.span("stream.gather", self.chunk_bytes):
+            gather_rows(images_np, rows, out=self.host[b])
         if self.stream is None:
             return
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):

@@ -7,7 +7,10 @@ Counterpart of ``clsurvey_tpu/framework/main.py``: the same flags plus
 ``--device`` (default ``cuda``), and ``--test`` runs the eval matrix
 afterwards. ``--profile`` traces the first task with ``torch.profiler``
 (the CPU, and the card's kernels on ``cuda``) into a Chrome trace under
-``<tr_results_root_path>/profile/<ds_name>_<method_name>/``.
+``<tr_results_root_path>/profile/<ds_name>_<method_name>/``, and writes the
+program's spans of the task (``utils/spans.py``: each train step, conv
+weight gradient, eval and chunk gather and wait, with device ms on the
+card) beside it as ``<stamp>-<pid>.spans.json``.
 
 Data parallel: under ``torchrun`` the run is data parallel over its ranks
 (``parallel/mesh.py``), with no flag, as the JAX CLI is over its mesh.
@@ -43,7 +46,8 @@ from clsurvey_torch.framework.common import Manager, RunArgs
 from clsurvey_torch.models import registry as models_lib
 from clsurvey_torch.parallel import mesh as mesh_lib
 from clsurvey_torch.utils import device as device_lib
-from clsurvey_torch.utils import io, paths as paths_lib, rng as rng_lib, timing
+from clsurvey_torch.utils import io, paths as paths_lib, rng as rng_lib
+from clsurvey_torch.utils import spans, timing
 from clsurvey_torch.utils.config import load_config
 
 
@@ -132,6 +136,7 @@ def _start_profiler(device):
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
+    spans.reset()
     prof.start()
     return prof
 
@@ -247,9 +252,11 @@ def main(args: RunArgs):
         finally:
             if profiler is not None:
                 profiler.stop()
-                profiler.export_chrome_trace(os.path.join(
-                    trace_dir, time.strftime("%Y%m%d-%H%M%S")
-                    + f"-{os.getpid()}.pt.trace.json"))
+                stem = os.path.join(trace_dir, time.strftime(
+                    "%Y%m%d-%H%M%S") + f"-{os.getpid()}")
+                profiler.export_chrome_trace(stem + ".pt.trace.json")
+                with open(stem + ".spans.json", "w") as f:
+                    json.dump(spans.dump(), f)
                 profiler = None
     timer.print_timing()
     timing.print_stats()

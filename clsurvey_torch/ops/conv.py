@@ -17,12 +17,15 @@ the gradient. Under ``torch.func.vmap(grad)`` (MAS's per-sample pass,
 batch, as ``ops/pool.py``'s do: one ``F.conv2d`` forward, one input
 gradient, and each sample's weight gradient ``dy_v^T @ patches_v`` as one
 batched GEMM a chunk of samples. bfloat16 and the CPU go to ``F.conv2d``
-unchanged."""
+unchanged. While a profiler records, each weight gradient is a
+``conv.wgrad`` span with the card's time (``utils/spans.py``)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from clsurvey_torch.utils import spans
 
 # bytes of patches a chunk of rows may write out
 CHUNK_BYTES = 256 << 20
@@ -49,20 +52,21 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, w_shape, stride: int,
         rows = max(per, rows // per * per)
     x_nhwc = x.permute(0, 2, 3, 1)  # free for channels_last
     dy_rows = dy.permute(0, 2, 3, 1)
-    gw = torch.zeros(v, cout, width, device=x.device, dtype=x.dtype)
-    for i in range(0, n, rows):
-        xp = x_nhwc[i:i + rows]
-        if padding:
-            xp = F.pad(xp, (0, 0, padding, padding, padding, padding))
-        patches = xp.unfold(1, kh, stride).unfold(2, kw, stride)
-        k = xp.shape[0] // per  # samples in the chunk
-        if samples:
-            gw[i // per:i // per + k].baddbmm_(
-                dy_rows[i:i + rows].reshape(k, -1, cout).transpose(1, 2),
-                patches.reshape(k, -1, width))
-        else:
-            gw[0].addmm_(dy_rows[i:i + rows].reshape(-1, cout).t(),
-                         patches.reshape(-1, width))  # (b oh ow, C_in kh kw)
+    with spans.span("conv.wgrad", n, device=x.is_cuda):
+        gw = torch.zeros(v, cout, width, device=x.device, dtype=x.dtype)
+        for i in range(0, n, rows):
+            xp = x_nhwc[i:i + rows]
+            if padding:
+                xp = F.pad(xp, (0, 0, padding, padding, padding, padding))
+            patches = xp.unfold(1, kh, stride).unfold(2, kw, stride)
+            k = xp.shape[0] // per  # samples in the chunk
+            if samples:
+                gw[i // per:i // per + k].baddbmm_(
+                    dy_rows[i:i + rows].reshape(k, -1, cout).transpose(1, 2),
+                    patches.reshape(k, -1, width))
+            else:  # (b oh ow, C_in kh kw)
+                gw[0].addmm_(dy_rows[i:i + rows].reshape(-1, cout).t(),
+                             patches.reshape(-1, width))
     return gw.view(v, *w_shape) if samples else gw.view(w_shape)
 
 

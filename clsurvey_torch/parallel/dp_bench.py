@@ -43,6 +43,7 @@ from clsurvey_torch.models.convert import batch_stats_to_jax
 from clsurvey_torch.models.registry import init_model_state, parse_model_name
 from clsurvey_torch.ops import _kernels
 from clsurvey_torch.parallel import mesh as mesh_lib
+from clsurvey_torch.utils.devtime import device_events
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -134,9 +135,7 @@ def _device_launches_per_step(leg: Leg, images, labels) -> float | None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         leg.epoch(images, labels, 99, PROFILED_STEPS * BS)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if "CUDA" in str(getattr(e, "device_type", ""))]
-    return sum(e.count for e in events) / PROFILED_STEPS
+    return sum(e.count for e in device_events(prof)) / PROFILED_STEPS
 
 
 def run(out: str, mode: str) -> dict:

@@ -24,10 +24,18 @@ def _per_call_us(events, iters: int) -> float | None:
     return us if us > 0 else None
 
 
+def device_events(prof) -> list:
+    """The averaged events of the card's own operations a profiler saw:
+    the program's spans (``utils/spans.py``) also show on the card's side
+    as annotations whose time is their kernels', which are left out."""
+    return [e for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def kernel_us(prof) -> dict:
     """{kernel name: total device us} of the kernels a profiler saw."""
-    return {e.key: e.self_device_time_total for e in prof.key_averages()
-            if "CUDA" in str(getattr(e, "device_type", ""))}
+    return {e.key: e.self_device_time_total for e in device_events(prof)}
 
 
 def _event_ms(fn, flush=None, iters: int = 20) -> float:
@@ -80,9 +88,7 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kept = [e for e in prof.key_averages()
-                if "CUDA" in str(getattr(e, "device_type", ""))]
-        us = _per_call_us(kept, iters)
+        us = _per_call_us(device_events(prof), iters)
         if us is not None:
             return us / 1e3, event_ms
     return _event_ms(fn, iters=iters), event_ms
@@ -107,9 +113,7 @@ def cold_ms(fn, flush, iters: int = 20) -> float:
                 flush()
                 fn()
             torch.cuda.synchronize()
-        kept = [e for e in prof.key_averages()
-                if "CUDA" in str(getattr(e, "device_type", ""))
-                and e.key not in skip]
+        kept = [e for e in device_events(prof) if e.key not in skip]
         us = _per_call_us(kept, iters)
         if skip and us is not None:
             return us / 1e3

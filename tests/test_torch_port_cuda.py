@@ -22,7 +22,11 @@ need not have; nothing here uses it.)
 - the port's float32 conv (``ops/conv.py``: its weight gradient a GEMM)
   against float64 on the card, at AlexNet's 5x5 conv, batched and per
   sample under ``vmap(grad)``;
-- ``parallel/mesh.py:global_grads``: its gradients the caller's alone."""
+- ``parallel/mesh.py:global_grads``: its gradients the caller's alone;
+- the program's spans (``utils/spans.py``): one ``conv.wgrad`` a conv a
+  backward, plain and under ``vmap(grad)``, with device time; a traced
+  AlexNet epoch has the same device operations with its spans as without
+  them, and its ``train.step`` records hold the profiler's events."""
 
 import numpy as np
 import pytest
@@ -263,3 +267,141 @@ def test_gradients_are_the_callers_alone_on_the_card(cuda):
         counts.update(g._use_count() for g in grads)
         assert all(w.grad is None for w in leaves)
     assert counts == {1}
+
+
+# ---------------------------------------------------------------------------
+# the program's spans on the card (utils/spans.py)
+# ---------------------------------------------------------------------------
+
+def _profiled():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def test_conv_wgrad_spans_on_the_card(cuda):
+    """One ``conv.wgrad`` span a conv a backward, with its rows and the
+    card's time: two convs through the plain route, then one under MAS's
+    ``vmap(grad)`` over 16 samples (the samples folded into the rows).
+    ``utils/devtime.py`` counts no span among the card's kernels."""
+    from clsurvey_torch.ops.conv import conv2d
+    from clsurvey_torch.utils import devtime, spans
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).contiguous(
+            memory_format=torch.channels_last)
+
+    x, w1, w2 = t(8, 64, 27, 27), t(192, 64, 5, 5) * 0.03, t(64, 192, 3, 3)
+    w1.requires_grad_()
+    w2.requires_grad_()
+    spans.reset()
+    with _profiled() as prof:
+        out = conv2d(torch.relu(conv2d(x, w1, None, 1, 2)), w2, None, 1, 1)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+    plain = spans.records("conv.wgrad")
+    assert [r.n for r in plain] == [8, 8]
+    # the spans' annotations on the card's side are no kernels of devtime's
+    assert not [k for k in devtime.kernel_us(prof)
+                if k.startswith(spans.PREFIX)]
+
+    def loss(row, weight):
+        return conv2d(row[None], weight, None, 1, 2).square().sum()
+
+    spans.reset()
+    with _profiled():
+        torch.func.vmap(torch.func.grad(loss, argnums=1),
+                        in_dims=(0, None))(t(16, 64, 27, 27), w1.detach())
+    per_sample = spans.records("conv.wgrad")
+    assert [r.n for r in per_sample] == [16]
+    assert all(r.device_ms > 0 for r in plain + per_sample)
+    spans.reset()
+
+
+def _alexnet_epoch(cuda, steps=4, batch=16, px=64):
+    """An epoch of AlexNet's train step on the card (64 px, dropout and
+    flips on), its loss read back."""
+    from clsurvey_torch.engine import train as ttrain
+    from clsurvey_torch.methods.base import UpdateRule
+
+    spec = treg.parse_model_name("", "alexnet", (px, px))
+    ctx = ttrain.make_context(spec, task=0, n_tasks=1, class_counts=[5],
+                              mean=MEAN, std=STD, update_rule=UpdateRule(),
+                              device=cuda, augment=True)
+    model = treg.init_model_state(spec, 0, max_tasks=1, classes_per_task=5,
+                                  class_counts=[5])
+    box = [ttrain.state_from_model(model, None, cuda)]
+    box[0].mstate = UpdateRule().init_state(None, {}, ctx)
+    engine = ttrain.Engine(ctx)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = steps * batch
+    images = torch.randint(0, 256, (n, px, px, 3), dtype=torch.uint8,
+                           device=cuda, generator=gen)
+    labels = torch.randint(0, 5, (n,), device=cuda, generator=gen)
+
+    def epoch():
+        box[0], metrics = engine.train_epoch(
+            box[0], images, labels, torch.arange(n),
+            torch.Generator(device=cuda).manual_seed(1), 1e-3, batch)
+        float(metrics["loss"])
+
+    return epoch
+
+
+def _traced(epoch):
+    """``epoch`` traced as the benchmark traces its window: (the trace as
+    ``clbench/trace.py`` reads it, the profiler)."""
+    from clbench import trace as trace_lib
+
+    prof = trace_lib.start()
+    with trace_lib.span("window", True):
+        epoch()
+        torch.cuda.synchronize()
+    return trace_lib.read(prof), prof
+
+
+def test_step_spans_on_the_card_add_no_device_operation(cuda, monkeypatch):
+    """A traced AlexNet epoch with the program's spans and without them:
+    the same kernels, copies and memsets (the spans' device-side
+    annotations are no operations of the card's), so the same
+    ``launches_per_step``. Each ``train.step`` record holds the profiler's
+    event of its range (to 0.1 ms; a handoff of the interpreter lock to
+    autograd's thread between the two stamps widens a record), their ends
+    within 1 ms in the median, and every step and conv weight gradient has
+    its device time."""
+    from clsurvey_torch.utils import spans
+
+    epoch = _alexnet_epoch(cuda)
+    epoch()  # cuDNN's algorithm search, outside the traces
+    spans.reset()
+    with_spans, prof = _traced(epoch)
+    steps = spans.records("train.step")
+    wgrad = spans.records("conv.wgrad")
+    assert [r.step for r in steps] == [1, 2, 3, 4]
+    assert sorted(r.step for r in wgrad) == [s for s in (1, 2, 3, 4)
+                                             for _ in range(5)]
+    assert all(r.device_ms > 0 for r in steps + wgrad)
+    events = sorted(
+        (ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        for ev in prof.profiler.kineto_results.events()
+        if ev.name() == spans.PREFIX + spans.STEP
+        and "CUDA" not in str(ev.device_type()))
+    assert len(events) == len(steps)
+    gaps = []
+    for (s, e), r in zip(events, steps):
+        assert r.start_ns - 100_000 <= s <= e <= r.end_ns + 100_000, \
+            (r.start_ns, s, e, r.end_ns)
+        gaps += [s - r.start_ns, r.end_ns - e]
+    assert sorted(gaps)[len(gaps) // 2] < 1_000_000, gaps
+    monkeypatch.setattr(spans, "span", lambda *a, **k: spans.OFF)
+    without, _ = _traced(epoch)
+    spans.reset()
+
+    def ops(trace):
+        return sorted((name, kind) for name, kind, _, _ in trace.ops)
+
+    got, want = ops(with_spans), ops(without)
+    assert got == want, (len(got), len(want), sorted(set(got) ^ set(want)))
+    assert not any(name.startswith(spans.PREFIX) for name, _ in got)

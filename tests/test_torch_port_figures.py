@@ -1,7 +1,8 @@
 """clsurvey_torch's ``--profile`` and figures on the CPU.
 
 - ``--profile`` writes a Chrome trace of the first task (as
-  ``tests/test_profile_flag.py`` checks the JAX package's);
+  ``tests/test_profile_flag.py`` checks the JAX package's), and the
+  program's spans of it beside the trace;
 - ``analyze_experiments`` on the port's own results (finetuning and Joint
   through the port's CLI with ``--test``, two tasks) writes ``_acc.png``
   and ``_forgetting.png``, a ``_v2`` beside a figure that exists, and
@@ -10,6 +11,7 @@
 - without matplotlib, rendering raises an ``ImportError`` naming it."""
 
 import glob
+import json
 import os
 import sys
 
@@ -49,6 +51,17 @@ def test_profile_writes_trace(port_root):
     assert len(traces) == 1, os.listdir(trace_dir)
     with open(traces[0]) as f:
         assert '"traceEvents"' in f.read()
+    # the program's spans of the task, beside the trace: every train step
+    # numbered in turn, and the evals
+    with open(traces[0].replace(".pt.trace.json", ".spans.json")) as f:
+        got = json.load(f)
+    assert got["dropped"] == 0
+    steps = [r for r in got["records"] if r["name"] == "train.step"]
+    assert steps and [r["step"] for r in steps] == \
+        list(range(1, len(steps) + 1))
+    assert {r["name"] for r in got["records"]} == {"train.step", "eval"}
+    assert all(r["end_ns"] >= r["start_ns"] > 0 and r["n"] > 0
+               for r in got["records"])
 
 
 @pytest.fixture()
