@@ -22,7 +22,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    where it fits), and for the pool pair also a cold-L2 device time (a
    128 MiB buffer overwritten before each call, its kernel left out by
    name), beside the plain version's, the library call's where one
-   exists, the bound, and an empty kernel's time;
+   exists, the bound, and an empty kernel's time; kernel C (the float32
+   conv weight gradient) at AlexNet's and small_VGG9's eleven convs at
+   batch 200 against its plain twin, bitwise repeatable, warm and cold
+   beside the twin and its FFMA bound;
 3. cli: the timing_mode finetuning CLI on small_VGG9_cl_128_128, with the
    launch counters zeroed just before and read just after; every kernel
    must have launched, every pool launch on the vec route, and every task
@@ -73,9 +76,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    px, batch 200, 25 classes, 4,000 random rows) through the port's Engine
    in bf16 and float32 (img/s, ``mfu`` against the dense peak, device busy share,
    launches a step, top kernels, the first conv's cost, peak memory; A
-   launches, no pool kernel); a RecogSeq-shaped tree of 224-px JPEGs
+   launches, no pool kernel, kernel C five times a float32 step and never
+   in bf16); a RecogSeq-shaped tree of 224-px JPEGs
    prepared by the port and ``alexnet`` finetuning on ``recogseq`` through
-   the timing_mode CLI (A only; one eval entry card vs CPU); a fake
+   the timing_mode CLI (A and C only; one eval entry card vs CPU); a fake
    tiny-imagenet-200 prepared by the port and small_VGG9 finetuning on
    ``tiny`` for 2 tasks (A, B1, B2, the vec route); a HATAlexNet step's
    gradient (float32 on the card against float64 on the CPU on the card's
@@ -157,8 +161,9 @@ every size the path used is held.
 
 Each phase ends with a ``{"phase": ..., "seconds": ...}`` line. The line
 before the last is the ``{"kernels": [...]}`` record (A in float32, B1 and
-B2 in float32 and bfloat16; ``ms`` warm, ``cold_ms`` on a cold L2, summed
-over the step's shapes, ``shape_routes`` the route of each): ``launches``
+B2 in float32 and bfloat16, C in float32 over AlexNet's five convs;
+``ms`` warm, ``cold_ms`` on a cold L2, summed over the step's shapes,
+``shape_routes`` the route of each): ``launches``
 is the count of the ``cli`` run, ``launches_framework``,
 ``launches_methods``, ``launches_rehearsal``, ``launches_masks``,
 ``launches_alexnet``, ``launches_streaming``, ``launches_dp`` (per leg
@@ -365,7 +370,8 @@ def check_pool_under_vmap(shape, dtype, gen) -> None:
             per_sample(x), per_sample(g))
     torch.cuda.synchronize()
     launched = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
-    if launched != {"normalize_flip": 0, "pool_fwd": 2, "pool_bwd": 1}:
+    if launched != {"normalize_flip": 0, "pool_fwd": 2, "pool_bwd": 1,
+                    "conv_wgrad": 0}:
         raise AssertionError(f"pool under vmap at {shape}: launches "
                              f"{launched}, not one per pool call")
     if not (torch.equal(val, per_sample(pval))
@@ -482,7 +488,8 @@ def check_pool(gen) -> tuple[dict, dict]:
     return {"err": err, "rows": fwd_rows}, {"err": err, "rows": bwd_rows}
 
 
-def _kernel_row(name, source, replaces, check, launches, dtype) -> dict:
+def _kernel_row(name, source, replaces, check, launches, dtype,
+                bound_by="bytes") -> dict:
     """One record per kernel: its device time per training step at the
     main path's shapes in ``dtype`` (the sum over the shapes it runs at
     once per step), with every (shape, dtype) measured kept under
@@ -498,7 +505,7 @@ def _kernel_row(name, source, replaces, check, launches, dtype) -> dict:
         "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
         "cold_ms": total("cold_ms"), "event_ms": total("kernel_event_ms"),
         "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-        "bound_by": "bytes", "library_ms": total("library_ms"),
+        "bound_by": bound_by, "library_ms": total("library_ms"),
         "dtype": str(dtype), "shape": [r["shape"] for r in rows],
         "shape_routes": [r.get("route", r.get("path")) for r in rows],
         "shapes": [r for r in check["rows"] if r["dtype"] == str(dtype)],
@@ -536,13 +543,78 @@ def check_batches(gen, sizes) -> list:
     return sorted(sizes)
 
 
+def check_conv_wgrad(gen) -> dict:
+    """Kernel C (``csrc/conv_wgrad.cu``, the float32 conv weight gradient)
+    at AlexNet's five and small_VGG9's six convs at batch 200
+    (``utils/conv_precision.SHAPES``), channels_last: against its plain
+    twin (``ops/conv.py:weight_grad_plain``, the patches written out and a
+    cuBLAS GEMM) within twice ``CONV_REL_TOL`` of the twin's largest entry
+    (the alexnet phase holds both within ``CONV_REL_TOL`` of float64), and
+    two calls bit-equal. Timed warm and on a cold L2 beside the twin; the
+    bound is FFMA's, the GEMM's FLOPs at 67 TFLOP/s. AlexNet's rows are the
+    benchmark's step (``main``); small_VGG9's first conv keeps the twin
+    (``ops/conv.py``'s rule on C_in k k) and is timed through it alone."""
+    from clsurvey_torch.ops import conv
+    from clsurvey_torch.utils.conv_precision import BATCH, SHAPES
+
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = scratch.bitwise_not_
+    rows, err = [], 0.0
+    for name, (cin, cout, k, st, p, hw) in SHAPES.items():
+        oh = (hw + 2 * p - k) // st + 1
+        x = torch.relu(torch.randn(BATCH, cin, hw, hw, device="cuda",
+                                   generator=gen)).contiguous(
+            memory_format=torch.channels_last)
+        dy = torch.randn(BATCH, cout, oh, oh, device="cuda",
+                         generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        w_shape = (cout, cin, k, k)
+        plain = functools.partial(conv.weight_grad_plain, x, dy, w_shape,
+                                  st, p)
+        route = None
+        kernel = None
+        if conv.takes_kernel(x, dy, w_shape):
+            route = conv.wgrad_route(cin, x.data_ptr())
+            kernel = functools.partial(conv.weight_grad_cuda, x, dy,
+                                       w_shape, st, p)
+            got, want = kernel(), plain()
+            if not torch.equal(got, kernel()):
+                raise AssertionError(f"kernel C at {name}: two calls differ")
+            gap = float((got - want).abs().max() / want.abs().max())
+            if not gap <= 2 * CONV_REL_TOL:
+                raise AssertionError(
+                    f"kernel C at {name}: {gap:.3g} of the plain twin's "
+                    f"largest entry off it (tolerance {2 * CONV_REL_TOL:g})")
+            err = max(err, gap)
+        flops = 2.0 * BATCH * oh * oh * cout * cin * k * k
+        row = _timings(
+            {"shape": [BATCH, cin, hw, hw], "conv": name, "kernel": k,
+             "stride": st, "c_out": cout, "dtype": str(torch.float32),
+             "route": route or "plain", "main": name.startswith("alexnet"),
+             "bound_ms": flops / PEAK_FLOPS[torch.float32] * 1e3},
+            kernel=kernel, plain=plain, library=None)
+        row["cold_ms"] = kernel and cold_ms(kernel, flush)
+        rows.append(row)
+        log(f"kernel C [{row['route']}] {name}: "
+            + ("plain twin only (C_in k k below "
+               f"{conv.WGRAD_MIN_COLUMNS})" if kernel is None else
+               f"{row['kernel_ms']:.4f} ms warm, {row['cold_ms']:.4f} ms "
+               f"cold ({100 * row['bound_ms'] / row['kernel_ms']:.0f}% of "
+               f"the FFMA bound {row['bound_ms']:.4f} warm)")
+            + f"; plain twin {row['plain_ms']:.4f} ms")
+    del scratch
+    return {"err": err, "rows": rows}
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {"normalize_flip": check_preprocess(gen)}
     checks["pool_fwd"], checks["pool_bwd"] = check_pool(gen)
     checks["held_batches"] = check_batches(gen, REHEARSAL_BATCHES)
+    checks["conv_wgrad"] = check_conv_wgrad(gen)
     log("kernels agree with their plain versions "
-        "(preprocess f32 <= 1 ulp, bf16 exact; pool fwd/bwd exact); "
+        "(preprocess f32 <= 1 ulp, bf16 exact; pool fwd/bwd exact; "
+        f"conv wgrad within {2 * CONV_REL_TOL:g}, bitwise repeatable); "
         f"also at batch sizes {checks['held_batches']}")
     return checks
 
@@ -1961,6 +2033,14 @@ def alexnet_protocol(card: str) -> dict:
         _no_pool_launches(launches, f"alexnet224 {tag}")
         out[f"alexnet224_{tag}"] = launches
         steps = ALEX_ROWS // ALEX_BS
+        # every float32 conv weight gradient through kernel C: five a step
+        want = 5 * 4 * steps if dtype == torch.float32 else 0
+        log(f"alexnet224 {tag}: kernel C launches {launches['conv_wgrad']} "
+            f"in {4 * steps} steps (routes "
+            f"{ {k: v for k, v in _kernels.ROUTES.items() if 'conv' in k} })")
+        if launches["conv_wgrad"] != want:
+            raise AssertionError(f"alexnet224 {tag}: {launches['conv_wgrad']}"
+                                 f" kernel C launches, not {want}")
         best = min(per_epoch[1:])
         img_s = steps * ALEX_BS / best
         peak = torch.cuda.max_memory_allocated()
@@ -2465,7 +2545,7 @@ CONV_REL_TOL = 1e-4  # card float32 conv against float64, of its largest
 
 def check_conv_precision(card: str) -> dict:
     """The port's float32 convs (``ops/conv.py``: cuDNN's forward and input
-    gradient, the weight gradient a cuBLAS GEMM; TF32 off): forward, input
+    gradient, the weight gradient kernel C; TF32 off): forward, input
     and weight gradient of AlexNet's and small_VGG9's convs at batch 200,
     and each sample's input and weight gradient through MAS's ``vmap(grad)``
     over ``MAS_CHUNK`` samples of one row, against float64 on the card
@@ -3654,22 +3734,28 @@ def run(phases: list) -> int:
     if checks is not None:
         sources = {"normalize_flip": "clsurvey_torch/csrc/preprocess.cu",
                    "pool_fwd": "clsurvey_torch/csrc/pool.cu",
-                   "pool_bwd": "clsurvey_torch/csrc/pool.cu"}
+                   "pool_bwd": "clsurvey_torch/csrc/pool.cu",
+                   "conv_wgrad": "clsurvey_torch/csrc/conv_wgrad.cu"}
+        # kernel C replaces no TPU kernel (XLA's conv weight gradient)
         replaces = {"normalize_flip": "clsurvey_tpu/ops/preprocess.py:61",
                     "pool_fwd": "clsurvey_tpu/ops/pool_pallas.py:82",
-                    "pool_bwd": "clsurvey_tpu/ops/pool_pallas.py:113"}
+                    "pool_bwd": "clsurvey_tpu/ops/pool_pallas.py:113",
+                    "conv_wgrad": None}
         # A in float32; B1 and B2 in float32 and in bfloat16, the dtype of
-        # the protocol's headline throughput
+        # the protocol's headline throughput; kernel C in float32, the only
+        # dtype it runs in (its ms: AlexNet's five convs, a train step)
         dtypes = {"normalize_flip": (torch.float32,),
                   "pool_fwd": (torch.float32, torch.bfloat16),
-                  "pool_bwd": (torch.float32, torch.bfloat16)}
+                  "pool_bwd": (torch.float32, torch.bfloat16),
+                  "conv_wgrad": (torch.float32,)}
         if alex is not None:  # A at AlexNet's shape, beside the others
             checks["normalize_flip"]["rows"].extend(alex["rows"])
         log(card)
         log(json.dumps({"kernels": [
             {**_kernel_row(name, sources[name], replaces[name],
                            checks[name], launches and launches[name],
-                           dtype),
+                           dtype, "FFMA" if name == "conv_wgrad"
+                           else "bytes"),
              "launches_framework": fw_launches and {
                  m: n[name] for m, n in fw_launches.items()},
              "launches_methods": method_launches and {

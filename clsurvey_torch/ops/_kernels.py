@@ -8,10 +8,12 @@ library name carries a hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
 
 ``LAUNCHES`` counts, per kernel, the launches made by the wrappers in
-``ops/preprocess.py`` and ``ops/pool.py``, ``ROUTES`` the pool pair's
-launches per route (``pool_fwd_vec``, ``pool_fwd_scalar``, ...), and
-``BATCHES`` collects the batch sizes they were launched at;
-:func:`reset_launches` clears all three.
+``ops/preprocess.py``, ``ops/pool.py`` and ``ops/conv.py`` (``conv_wgrad``:
+kernel C, one a float32 conv weight gradient on the card, its GEMM and its
+sum of the slices), ``ROUTES`` the pool pair's and kernel C's launches per
+route (``pool_fwd_vec``, ``pool_fwd_scalar``, ..., ``conv_wgrad_vec``,
+``conv_wgrad_scalar``), and ``BATCHES`` collects the batch sizes they were
+launched at; :func:`reset_launches` clears all three.
 """
 
 from __future__ import annotations
@@ -49,10 +51,19 @@ SIGNATURES = {
         "clsurvey_pool_fwd_route": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
         "clsurvey_pool_bwd_route": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     },
+    "conv_wgrad": {
+        # x, dy, workspace, dW; rows, H, W, C, OH, OW, C_out, k, stride,
+        # padding, groups, slices, chunk, tile rows, and 1 where x and
+        # where dy are copied 16 bytes at a time
+        "clsurvey_conv_wgrad": (_P, _P, _P, _P) + (_I,) * 16 + (_P,),
+        # resident blocks an SM (tile rows, x's and dy's copies)
+        "clsurvey_conv_wgrad_occupancy": (_I, _I, _I),
+    },
 }
 
-LAUNCHES = {"normalize_flip": 0, "pool_fwd": 0, "pool_bwd": 0}
-ROUTES = {f"{k}_{r}": 0 for k in ("pool_fwd", "pool_bwd")
+LAUNCHES = {"normalize_flip": 0, "pool_fwd": 0, "pool_bwd": 0,
+            "conv_wgrad": 0}
+ROUTES = {f"{k}_{r}": 0 for k in ("pool_fwd", "pool_bwd", "conv_wgrad")
           for r in ("vec", "scalar")}
 BATCHES: dict[str, set] = {name: set() for name in LAUNCHES}
 

@@ -10,7 +10,8 @@ the forward, the input gradient and the weight gradient in float32, each
 as max |float32 - float64| over the largest float64 entry (float64 on the
 card), through ``F.conv2d`` (cuDNN throughout) and through the port's
 :func:`clsurvey_torch.ops.conv.conv2d` (cuDNN's forward and input
-gradient, the weight gradient as a cuBLAS GEMM), and the device ms of one
+gradient, the weight gradient kernel C, ``csrc/conv_wgrad.cu``; its plain
+twin at small_VGG9's first conv), and the device ms of one
 float32 forward + backward of each (CUPTI, through ``utils/devtime.py``).
 Inputs are ReLU'd normals, as a conv after ReLU sees; weights are
 He-scaled normals; the cotangent is normal.

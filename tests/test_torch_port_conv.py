@@ -214,3 +214,82 @@ def test_function_per_sample_grads_under_vmap(name, n):
                    f"{name} sample {i} {what} against F.conv2d")
             _close(got[j][i], want_jax[j][i],
                    f"{name} sample {i} {what} against jax.vmap(jax.grad)")
+
+
+# ---------------------------------------------------------------------------
+# kernel C's plan and dispatch (the kernel itself runs on the card:
+# tests/test_torch_port_cuda.py)
+# ---------------------------------------------------------------------------
+
+def _card_shapes():
+    from clsurvey_torch.utils.conv_precision import SHAPES as CARD_SHAPES
+
+    return CARD_SHAPES
+
+
+@pytest.mark.parametrize("rows, samples", [(200, None), (37, None),
+                                           (16, 16), (6, 3), (1, None)],
+                         ids=["200", "37", "16x1", "3x2", "1"])
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("name", list(_card_shapes()))
+def test_wgrad_plan_slices_cover_every_pixel_once(name, rows, samples, sms):
+    """The split over output pixels at every card shape: each group's (one
+    sample's) pixels are cut into whole stages, every pixel of every row in
+    exactly one slice, no slice empty or across a sample's edge; the tile
+    rows fill C_out where they can; the workspace holds every slice's
+    whole tiles, and is left out where one slice of unpadded tiles is
+    written to the gradient itself."""
+    cin, cout, k, st, p, hw = _card_shapes()[name]
+    oh = (hw + 2 * p - k) // st + 1
+    w_shape = (cout, cin, k, k)
+    plan = tconv.wgrad_plan(w_shape, (oh, oh), rows, samples, "vec", "vec",
+                            sms, lambda bm, *routes: 4 if bm == 64 else 2)
+    v = samples or 1
+    assert plan.groups == v and plan.pixels == rows // v * oh * oh
+    assert plan.chunk % tconv.WGRAD_BK[plan.bm] == 0 and plan.slices >= 1
+    covered = np.zeros(rows * oh * oh, dtype=int)
+    for g in range(v):  # as the kernel cuts them: group g from g * pixels
+        first, last = g * plan.pixels, (g + 1) * plan.pixels
+        for s in range(plan.slices):
+            start = first + s * plan.chunk
+            end = min(start + plan.chunk, last)
+            assert first <= start < end <= last
+            covered[start:end] += 1
+    assert (covered == 1).all()
+    assert plan.bm == (128 if cout % 128 == 0 else 64)
+    rows_pad, cols_pad = -(-cout // plan.bm) * plan.bm, -(-cin * k * k
+                                                          // 128) * 128
+    direct = plan.slices == 1 and (rows_pad, cols_pad) == (cout, cin * k * k)
+    assert plan.ws_floats == (0 if direct else
+                              v * plan.slices * rows_pad * cols_pad)
+
+
+@pytest.mark.parametrize("channels, ptr, route", [
+    (64, 256, "vec"),
+    (3, 256, "scalar"),     # AlexNet's first conv's input
+    (6, 256, "scalar"),     # not a multiple of 4
+    (64, 260, "scalar"),    # one float past 16 bytes
+])
+def test_wgrad_route(channels, ptr, route):
+    assert tconv.wgrad_route(channels, ptr) == route
+
+
+@pytest.mark.parametrize("name", ["alexnet.conv_0", "small_VGG9.conv_1"])
+def test_weight_grad_takes_the_plain_route_on_the_cpu(name):
+    """Float32 on the CPU: :func:`weight_grad` is the plain twin, bit for
+    bit, and launches nothing; a bfloat16 :func:`conv2d` stays
+    ``F.conv2d``."""
+    from clsurvey_torch.ops import _kernels
+
+    x, w, dy = _inputs(SHAPES[name], seed=6)
+    cin, cout, k, st, p, hw = SHAPES[name]
+    xt, dyt = _nchw(x).float(), _nchw(dy).float()
+    w_shape = (cout, cin, k, k)
+    assert not tconv.takes_kernel(xt, dyt, w_shape)
+    before = dict(_kernels.LAUNCHES)
+    assert torch.equal(tconv.weight_grad(xt, dyt, w_shape, st, p),
+                       tconv.weight_grad_plain(xt, dyt, w_shape, st, p))
+    assert _kernels.LAUNCHES == before
+    wt = torch.from_numpy(w).permute(3, 2, 0, 1).bfloat16().requires_grad_()
+    y = tconv.conv2d(xt.bfloat16(), wt, None, st, p)
+    assert type(y.grad_fn).__name__ == "ConvolutionBackward0"

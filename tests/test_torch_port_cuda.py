@@ -19,9 +19,13 @@ need not have; nothing here uses it.)
 - the pool pair under ``torch.func.vmap(grad)``: one launch each, equal to
   a per-sample loop;
 - the backbone on the card against the same backbone on the CPU;
-- the port's float32 conv (``ops/conv.py``: its weight gradient a GEMM)
+- the port's float32 conv (``ops/conv.py``: its weight gradient kernel C)
   against float64 on the card, at AlexNet's 5x5 conv, batched and per
   sample under ``vmap(grad)``;
+- kernel C (``csrc/conv_wgrad.cu``) at every conv shape of
+  ``utils/conv_precision``: against float64 and its plain twin at 200 and
+  37 rows, per sample (16 of one row, 3 of two), bitwise repeatable, each
+  call counted on its route, five calls a step of AlexNet;
 - ``parallel/mesh.py:global_grads``: its gradients the caller's alone;
 - the program's spans (``utils/spans.py``): one ``conv.wgrad`` a conv a
   backward, plain and under ``vmap(grad)``, with device time; a traced
@@ -145,7 +149,8 @@ def test_pool_kernels_match_plain(cuda, dtype, shape, offset):
                        pool.pool_bwd_plain(g, code, x.shape))
     launched = {k: _kernels.ROUTES[k] - before[k] for k in before}
     assert launched == {f"pool_{k}_{r}": int(r == route)
-                        for k in ("fwd", "bwd") for r in ("vec", "scalar")}
+                        for k in ("fwd", "bwd") for r in ("vec", "scalar")
+                        } | {"conv_wgrad_vec": 0, "conv_wgrad_scalar": 0}
 
 
 def test_pool_autograd_matches_max_pool2d(cuda):
@@ -244,6 +249,126 @@ def test_conv_per_sample_grads_are_float32_exact_on_the_card(cuda):
         for i in range(16):
             top = float(e[i].abs().max())
             assert float((g[i].double() - e[i]).abs().max()) <= 1e-4 * top
+
+
+# ---------------------------------------------------------------------------
+# kernel C: the float32 conv weight gradient (ops/conv.py, csrc/conv_wgrad.cu)
+# ---------------------------------------------------------------------------
+
+WGRAD_REL_TOL = 1e-4  # against float64, of its largest entry (chip_smoke's)
+
+
+def _wgrad_inputs(cuda, name, n, seed=0):
+    """float64 ReLU'd input and normal cotangent at a card shape of
+    ``utils/conv_precision``, and their float32 channels_last copies."""
+    from clsurvey_torch.utils.conv_precision import SHAPES
+
+    cin, cout, k, st, p, hw = SHAPES[name]
+    oh = (hw + 2 * p - k) // st + 1
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.relu(torch.randn(n, cin, hw, hw, generator=gen, device=cuda,
+                               dtype=torch.float64))
+    dy = torch.randn(n, cout, oh, oh, generator=gen, device=cuda,
+                     dtype=torch.float64)
+    x32, dy32 = (t.float().contiguous(memory_format=torch.channels_last)
+                 for t in (x, dy))
+    return x, dy, x32, dy32, (cout, cin, k, k), st, p
+
+
+def _worst_rel(got, want) -> float:
+    """The largest over the leading dimension of each entry's error over
+    its own largest float64 entry."""
+    err = (got.double() - want).flatten(1).abs().amax(1)
+    return float((err / want.flatten(1).abs().amax(1)).max())
+
+
+def _wgrad_names():
+    from clsurvey_torch.utils.conv_precision import SHAPES
+
+    return list(SHAPES)
+
+
+@pytest.mark.parametrize("rows", [200, 37])
+@pytest.mark.parametrize("name", _wgrad_names())
+def test_conv_wgrad_kernel_matches_float64_and_plain(cuda, name, rows):
+    """Kernel C at every card conv shape, at batch 200 and at a ragged 37
+    rows (pixels that fill no tile): within 1e-4 of the largest float64
+    entry, as the plain twin is, so the two within 2e-4 of each other;
+    one launch on the route :func:`conv.wgrad_route` names for the input,
+    none where :func:`conv.takes_kernel`'s rule keeps the plain twin
+    (small_VGG9's first conv: 27 patch columns)."""
+    from clsurvey_torch.ops import conv
+
+    x, dy, x32, dy32, w_shape, st, p = _wgrad_inputs(cuda, name, rows)
+    want = conv.weight_grad_plain(x, dy, w_shape, st, p)
+    route = conv.wgrad_route(w_shape[1], x32.data_ptr())
+    kernel = conv.takes_kernel(x32, dy32, w_shape)
+    assert kernel == (name != "small_VGG9.conv_0")
+    before = dict(_kernels.ROUTES)
+    got = conv.weight_grad(x32, dy32, w_shape, st, p)
+    launched = {k: _kernels.ROUTES[k] - before[k] for k in before}
+    assert {k: n for k, n in launched.items() if n} == (
+        {f"conv_wgrad_{route}": 1} if kernel else {})
+    assert got.shape == w_shape
+    if kernel:  # the port's conv weights' own layout
+        assert got.is_contiguous(memory_format=torch.channels_last)
+    plain = conv.weight_grad_plain(x32, dy32, w_shape, st, p)
+    assert _worst_rel(got[None], want[None]) <= WGRAD_REL_TOL
+    assert _worst_rel(plain[None], want[None]) <= WGRAD_REL_TOL
+    assert float((got - plain).abs().max()) <= \
+        2 * WGRAD_REL_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("samples, per", [(16, 1), (3, 2)],
+                         ids=["16x1", "3x2"])
+@pytest.mark.parametrize("name", _wgrad_names())
+def test_conv_wgrad_kernel_per_sample(cuda, name, samples, per):
+    """The per-sample form (MAS's ``vmap(grad)`` rule): V samples of
+    ``per`` rows one after another, each sample's gradient within 1e-4 of
+    its own largest float64 entry, and equal to kernel C on that sample's
+    rows alone to float32 rounding (the slices differ)."""
+    from clsurvey_torch.ops import conv
+
+    x, dy, x32, dy32, w_shape, st, p = _wgrad_inputs(cuda, name,
+                                                     samples * per, seed=1)
+    want = conv.weight_grad_plain(x, dy, w_shape, st, p, samples=samples)
+    before = _kernels.LAUNCHES["conv_wgrad"]
+    got = conv.weight_grad(x32, dy32, w_shape, st, p, samples=samples)
+    assert _kernels.LAUNCHES["conv_wgrad"] == before + int(
+        conv.takes_kernel(x32, dy32, w_shape))
+    assert got.shape == (samples, *w_shape)
+    assert _worst_rel(got, want) <= WGRAD_REL_TOL
+    for v in (0, samples - 1):
+        rows = slice(v * per, (v + 1) * per)
+        alone = conv.weight_grad(x32[rows], dy32[rows], w_shape, st, p)
+        assert float((got[v] - alone).abs().max()) <= \
+            2 * WGRAD_REL_TOL * float(want[v].abs().max())
+
+
+@pytest.mark.parametrize("name, rows, samples", [
+    ("alexnet.conv_0", 200, None), ("alexnet.conv_1", 200, None),
+    ("alexnet.conv_3", 37, None), ("small_VGG9.conv_1", 16, 16)])
+def test_conv_wgrad_kernel_is_bitwise_repeatable(cuda, name, rows, samples):
+    """Two calls on the same inputs give the same bits: the slices'
+    partial sums are added in a fixed order, with no atomics."""
+    from clsurvey_torch.ops import conv
+
+    _, _, x32, dy32, w_shape, st, p = _wgrad_inputs(cuda, name, rows)
+    first = conv.weight_grad(x32, dy32, w_shape, st, p, samples=samples)
+    assert torch.equal(first, conv.weight_grad(x32, dy32, w_shape, st, p,
+                                               samples=samples))
+
+
+def test_conv_wgrad_kernel_counts_five_a_step_of_alexnet(cuda):
+    """Every float32 conv weight gradient of AlexNet's train step goes
+    through kernel C: five launches a step, the first conv (C_in 3) on the
+    scalar route and the other four on the vec route."""
+    epoch = _alexnet_epoch(cuda)  # 4 steps
+    _kernels.reset_launches()
+    epoch()
+    assert _kernels.LAUNCHES["conv_wgrad"] == 20
+    assert (_kernels.ROUTES["conv_wgrad_scalar"],
+            _kernels.ROUTES["conv_wgrad_vec"]) == (4, 16)
 
 
 def test_gradients_are_the_callers_alone_on_the_card(cuda):

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from clsurvey_torch.ops import _kernels, pool, preprocess as pp
+from clsurvey_torch.ops import _kernels, conv, pool, preprocess as pp
 from clsurvey_tpu.ops import pool_pallas, preprocess as jpp
 
 MEAN = (0.485, 0.456, 0.406)
@@ -239,8 +239,12 @@ def test_cpu_tensors_take_the_plain_versions():
     x = torch.randn(2, 4, 4, 8, requires_grad=True)
     pool.pool2x2(x).sum().backward()
     pp.preprocess(torch.zeros(2, 4, 4, 3, dtype=torch.uint8), MEAN, STD)
+    w = torch.randn(4, 8, 3, 3, requires_grad=True)
+    conv.conv2d(x.permute(0, 3, 1, 2), w, None, 1, 1).sum().backward()
+    conv.weight_grad(x.detach().permute(0, 3, 1, 2),
+                     torch.randn(2, 4, 4, 4), tuple(w.shape), 1, 1)
     assert _kernels.LAUNCHES == {"normalize_flip": 0, "pool_fwd": 0,
-                                 "pool_bwd": 0}
+                                 "pool_bwd": 0, "conv_wgrad": 0}
 
 
 @pytest.mark.parametrize("x_shape, dtype, data_ptrs, code_ptr, route", [
