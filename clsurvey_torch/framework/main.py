@@ -9,8 +9,8 @@ afterwards. ``--profile`` traces the first task with ``torch.profiler``
 (the CPU, and the card's kernels on ``cuda``) into a Chrome trace under
 ``<tr_results_root_path>/profile/<ds_name>_<method_name>/``, and writes the
 program's spans of the task (``utils/spans.py``: each train step, conv
-weight gradient, eval and chunk gather and wait, with device ms on the
-card) beside it as ``<stamp>-<pid>.spans.json``.
+forward, input and weight gradient, pool call, eval and chunk gather and
+wait, with device ms on the card) beside it as ``<stamp>-<pid>.spans.json``.
 
 Data parallel: under ``torchrun`` the run is data parallel over its ranks
 (``parallel/mesh.py``), with no flag, as the JAX CLI is over its mesh.

@@ -24,8 +24,11 @@ product added into the gradient by a GEMM. Under ``torch.func.vmap(grad)``
 samples into the batch, as ``ops/pool.py``'s do: one ``F.conv2d``
 forward, one input gradient, and the per-sample form of the weight
 gradient, each sample's pixels its own slices. bfloat16 and the CPU go to
-``F.conv2d`` unchanged. While a profiler records, each weight gradient is a
-``conv.wgrad`` span with the card's time (``utils/spans.py``)."""
+``F.conv2d`` unchanged. While a profiler records, each of the three parts
+is a span with the card's time (``utils/spans.py``): cuDNN's forward
+``conv.fwd`` and its input gradient ``conv.dgrad`` in a sampled train step
+only (``spans.step_span``), the weight gradient ``conv.wgrad``, each with
+the call's rows."""
 
 from __future__ import annotations
 
@@ -248,8 +251,10 @@ class Conv2dBackward(torch.autograd.Function):
     def forward(x, weight, dy, stride: int, padding: int, needs: tuple):
         gx = gw = gb = None
         if needs[0]:
-            gx = torch.nn.grad.conv2d_input(x.shape, weight, dy,
-                                            stride=stride, padding=padding)
+            with spans.step_span("conv.dgrad", dy.shape[0], device=dy.is_cuda):
+                gx = torch.nn.grad.conv2d_input(x.shape, weight, dy,
+                                                stride=stride,
+                                                padding=padding)
         if needs[1]:
             gw = weight_grad(x, dy, weight.shape, stride, padding)
         if needs[2]:
@@ -272,8 +277,11 @@ class Conv2dBackward(torch.autograd.Function):
         xf, dyf = _fold(x, in_dims[0], v), _fold(dy, in_dims[2], v)
         gx = gw = gb = None
         if needs[0]:
-            gx = torch.nn.grad.conv2d_input(xf.shape, weight, dyf,
-                                            stride=stride, padding=padding)
+            with spans.step_span("conv.dgrad", dyf.shape[0],
+                                 device=dyf.is_cuda):
+                gx = torch.nn.grad.conv2d_input(xf.shape, weight, dyf,
+                                                stride=stride,
+                                                padding=padding)
             gx = gx.view(v, -1, *gx.shape[1:])
         if needs[1]:
             gw = weight_grad(xf, dyf, weight.shape, stride, padding,
@@ -291,7 +299,8 @@ class Conv2dExactWeightGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(x, weight, bias, stride: int, padding: int):
-        return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+        with spans.step_span("conv.fwd", x.shape[0], device=x.is_cuda):
+            return F.conv2d(x, weight, bias, stride=stride, padding=padding)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -313,8 +322,9 @@ class Conv2dExactWeightGrad(torch.autograd.Function):
     def vmap(info, in_dims, x, weight, bias, stride, padding):
         _unbatched(in_dims[1:3], "weight or bias")
         v = info.batch_size
-        y = F.conv2d(_fold(x, in_dims[0], v), weight, bias, stride=stride,
-                     padding=padding)
+        xf = _fold(x, in_dims[0], v)
+        with spans.step_span("conv.fwd", xf.shape[0], device=xf.is_cuda):
+            y = F.conv2d(xf, weight, bias, stride=stride, padding=padding)
         return y.view(v, -1, *y.shape[1:]), 0
 
 

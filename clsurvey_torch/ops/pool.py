@@ -15,13 +15,18 @@ is XLA select-and-scatter's rule. Odd H or W pool with VALID floor
 semantics; the dropped row / column gets a zero gradient.
 
 Unlike the JAX package there is no ``CLSURVEY_PALLAS_POOL`` gate: the pool
-always goes through this pair, whose max equals ``reduce_window``'s."""
+always goes through this pair, whose max equals ``reduce_window``'s.
+
+While a profiler records, each call of either in a sampled train step
+(``spans.step_span``) is a ``pool`` span with the card's time and the bytes it moves
+(:func:`call_bytes`; ``utils/spans.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from clsurvey_torch.ops import _kernels
+from clsurvey_torch.utils import spans
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # channels a thread of the vec route owns: 16 bytes of one window position
@@ -125,22 +130,39 @@ def _pool_bwd_cuda(g: torch.Tensor, code: torch.Tensor,
     return dx
 
 
+def call_bytes(x_shape, itemsize: int) -> int:
+    """The bytes one call of B1 or B2 on an input of ``x_shape`` (NHWC)
+    moves: B1 reads the input and writes the values and the 1-byte codes;
+    B2 reads the cotangent and the codes and writes the input's gradient."""
+    b, h, w, c = x_shape
+    return b * c * (h * w * itemsize + (h // 2) * (w // 2) * (itemsize + 1))
+
+
+def _span(x_shape, t: torch.Tensor):
+    if not spans.enabled():
+        return spans.OFF
+    return spans.step_span("pool", call_bytes(x_shape, t.element_size()),
+                           device=t.is_cuda)
+
+
 def pool_fwd(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 on a CUDA tensor, its plain version on a CPU tensor."""
-    if x.device.type == "cuda":
-        return _pool_fwd_cuda(x)
-    if x.device.type != "cpu":
-        raise ValueError(f"no pool path for {x.device}")
-    return pool_fwd_plain(x)
+    with _span(x.shape, x):
+        if x.device.type == "cuda":
+            return _pool_fwd_cuda(x)
+        if x.device.type != "cpu":
+            raise ValueError(f"no pool path for {x.device}")
+        return pool_fwd_plain(x)
 
 
 def pool_bwd(g: torch.Tensor, code: torch.Tensor, x_shape) -> torch.Tensor:
     """Kernel B2 on a CUDA tensor, its plain version on a CPU tensor."""
-    if g.device.type == "cuda":
-        return _pool_bwd_cuda(g, code, x_shape)
-    if g.device.type != "cpu":
-        raise ValueError(f"no pool path for {g.device}")
-    return pool_bwd_plain(g, code, x_shape)
+    with _span(x_shape, g):
+        if g.device.type == "cuda":
+            return _pool_bwd_cuda(g, code, x_shape)
+        if g.device.type != "cpu":
+            raise ValueError(f"no pool path for {g.device}")
+        return pool_bwd_plain(g, code, x_shape)
 
 
 def _fold(t: torch.Tensor, dim: int | None, v: int) -> torch.Tensor:

@@ -6,13 +6,20 @@ clock, recorded only while a ``torch.profiler`` records.
 
 Off (no profiler recording on this thread, the default), :func:`span`
 returns one shared object that does nothing: the cost is one flag check.
-On, it opens ``torch.profiler.record_function("clsurvey.<name>")``, so the
+On, it opens a profiler range ``clsurvey.<name>`` (``record_function``'s,
+through its about ten times cheaper fast form where torch has it), so the
 span shows in the profiler's trace (the benchmark's ``--trace 1`` window,
 the CLI's ``--profile`` Chrome trace), and appends a :class:`Record`:
 its name, host start and end, thread, the innermost span open on the same
 thread (``parent``), the train step it belongs to (``step``: one counter
 that each ``train.step`` span advances, so that the spans of one step share
 it, whatever thread runs them), and ``n``, the work done (rows or bytes).
+:func:`step_span` is for work that recurs many times in each step (a conv,
+a pool): it records only inside one train step in ``SAMPLE`` (steps 1,
+``SAMPLE + 1``, ...), on any thread, and not in an eval. Under the profiler
+a span with its two CUDA events costs about 50-65 us of host on an H100
+host, against one us for the range alone: sampled, nine of them add under
+0.3% to a 26-ms AlexNet step, where the host barely keeps ahead of the card.
 
 Host times are ``time.time_ns()``: Unix epoch nanoseconds, the clock the
 profiler stamps its events with, so that a device trace's idle gap can be
@@ -40,11 +47,16 @@ from torch.autograd.profiler import record_function
 PREFIX = "clsurvey."
 STEP = "train.step"  # the span that advances the step counter
 CAP = 1 << 16
+SAMPLE = 8  # step_span records in one train step of this many
 
 _profiler_enabled = torch.autograd._profiler_enabled
+# the profiler range; the fast form records the same range without
+# record_function's Python-side op dispatch
+_range = getattr(torch._C._profiler, "_RecordFunctionFast", record_function)
 _records: list = []
 _dropped = 0
 _step = 0
+_sampled = False  # a train step that step_span records in is open
 _local = threading.local()
 _lock = threading.Lock()
 
@@ -96,7 +108,7 @@ class _Span:
         self._name, self._n, self._device = name, n, device
 
     def __enter__(self) -> Record | None:
-        global _dropped, _step
+        global _dropped, _step, _sampled
         stack = _stack()
         with _lock:  # spans open on several threads at once
             if len(_records) >= CAP:
@@ -105,11 +117,12 @@ class _Span:
                 return None
             if self._name == STEP:
                 _step += 1
+                _sampled = (_step - 1) % SAMPLE == 0
             rec = self._rec = Record(
                 self._name, 0, None, threading.get_native_id(),
                 stack[-1] if stack else None, _step, self._n)
             _records.append(rec)
-        self._rf = record_function(PREFIX + rec.name)
+        self._rf = _range(PREFIX + rec.name)
         rec.start_ns = time.time_ns()  # next to the profiler's own stamp
         self._rf.__enter__()
         if self._device and not torch.cuda.is_current_stream_capturing():
@@ -120,9 +133,12 @@ class _Span:
         return rec
 
     def __exit__(self, *exc):
+        global _sampled
         rec = self._rec
         if rec is None:
             return False
+        if rec.name == STEP:
+            _sampled = False
         if rec._events is not None:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
@@ -144,6 +160,13 @@ def span(name: str, n=None, device: bool = False):
     or bytes); ``device``: the block's work runs on the card, so its time
     there is taken too."""
     return _Span(name, n, device) if enabled() else OFF
+
+
+def step_span(name: str, n=None, device: bool = False):
+    """:func:`span` inside a sampled train step (one in ``SAMPLE``) on any
+    thread, the no-op :data:`OFF` otherwise: for work that recurs inside
+    each step, whose readers read the sampled steps."""
+    return _Span(name, n, device) if _sampled and enabled() else OFF
 
 
 def carry(fn):
@@ -192,10 +215,11 @@ def dropped() -> int:
 def reset() -> None:
     """Forget every record and the dropped count; the step counter starts
     again."""
-    global _dropped, _step
+    global _dropped, _step, _sampled
     with _lock:
         _records.clear()
         _dropped = _step = 0
+        _sampled = False
 
 
 def dump() -> dict:

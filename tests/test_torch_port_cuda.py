@@ -13,7 +13,8 @@ need not have; nothing here uses it.)
   vector kernel (width a multiple of 8), its scalar kernel (any width, a
   pointer that is not 16-byte aligned) and the two against each other;
 - kernels B1/B2 (pool forward / backward): bit-equal values, codes and dx,
-  float32 and bfloat16, tie-heavy inputs, even and odd sizes, on the vec
+  float32 and bfloat16, tie-heavy inputs, even and odd sizes (up to
+  VGG-16's first pool at batch 200, (200,224,224,64)), on the vec
   route (C a multiple of 16 bytes, aligned) and the scalar route (other C,
   an input one element off), each launch counted on its route;
 - the pool pair under ``torch.func.vmap(grad)``: one launch each, equal to
@@ -25,12 +26,18 @@ need not have; nothing here uses it.)
 - kernel C (``csrc/conv_wgrad.cu``) at every conv shape of
   ``utils/conv_precision``: against float64 and its plain twin at 200 and
   37 rows, per sample (16 of one row, 3 of two), bitwise repeatable, each
-  call counted on its route, five calls a step of AlexNet;
+  call counted on its route, five calls a step of AlexNet; at VGG-16's
+  13 convs at 224 px (``clbench/configs/vgg16_224.json``, batch 16; the
+  first keeps the twin) and at its conv1_2 at batch 200, 10,035,200 output
+  pixels split into slices, against float64;
 - ``parallel/mesh.py:global_grads``: its gradients the caller's alone;
 - the program's spans (``utils/spans.py``): one ``conv.wgrad`` a conv a
-  backward, plain and under ``vmap(grad)``, with device time; a traced
-  AlexNet epoch has the same device operations with its spans as without
-  them, and its ``train.step`` records hold the profiler's events."""
+  backward, plain and under ``vmap(grad)``, with device time; one ``pool``
+  a B1 and a B2 call inside a train step with its bytes and device time;
+  a traced AlexNet epoch has the same device operations with its spans as
+  without them, its ``train.step`` records hold the profiler's events, and
+  the sampled step has a ``conv.fwd`` a conv and a ``conv.dgrad`` a conv
+  but the first."""
 
 import numpy as np
 import pytest
@@ -128,7 +135,7 @@ def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
 @pytest.mark.parametrize("shape", [(200, 64, 64, 64), (200, 8, 8, 128),
                                    (6, 9, 7, 64), (3, 2, 3, 5),
                                    (4, 6, 8, 8), (5, 7, 6, 12),
-                                   (2, 4, 4, 512)])
+                                   (2, 4, 4, 512), (200, 224, 224, 64)])
 def test_pool_kernels_match_plain(cuda, dtype, shape, offset):
     """Bit-equal values, codes and dx on both routes: the vec route where C
     is a multiple of V (4 float32, 8 bfloat16) and the input is aligned,
@@ -359,6 +366,70 @@ def test_conv_wgrad_kernel_is_bitwise_repeatable(cuda, name, rows, samples):
                                                samples=samples))
 
 
+def _vgg16_convs() -> dict:
+    """{conv name: (C_in, C_out, input side)} of VGG-16's 13 3x3 convs at
+    224 px, from the benchmark's configuration."""
+    from clbench.reference import net
+    from clbench.spec import Spec
+
+    return {layer["name"]: (src[0], dst[0], src[1]) for layer, src, dst
+            in net.shapes(Spec().config("vgg16_224"))
+            if layer["op"] == "conv"}
+
+
+def _vgg16_wgrad_inputs(cuda, name: str, n: int):
+    cin, cout, hw = _vgg16_convs()[name]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.relu(torch.randn(n, cin, hw, hw, generator=gen, device=cuda,
+                               dtype=torch.float64))
+    dy = torch.randn(n, cout, hw, hw, generator=gen, device=cuda,
+                     dtype=torch.float64)
+    x32, dy32 = (t.float().contiguous(memory_format=torch.channels_last)
+                 for t in (x, dy))
+    return x, dy, x32, dy32, (cout, cin, 3, 3)
+
+
+@pytest.mark.parametrize("name", list(_vgg16_convs()))
+def test_conv_wgrad_kernel_at_vgg16_shapes(cuda, name):
+    """Kernel C at each of VGG-16's convs at 224 px, batch 16: within 1e-4
+    of the largest float64 entry, one launch where
+    :func:`conv.takes_kernel` sends the call to it (12 of the 13; the
+    first conv's 27 patch columns keep the twin), none where not."""
+    from clsurvey_torch.ops import conv
+
+    x, dy, x32, dy32, w_shape = _vgg16_wgrad_inputs(cuda, name, 16)
+    kernel = conv.takes_kernel(x32, dy32, w_shape)
+    assert kernel == (name != "features.conv_0")
+    want = conv.weight_grad_plain(x, dy, w_shape, 1, 1)
+    del x, dy
+    before = _kernels.LAUNCHES["conv_wgrad"]
+    got = conv.weight_grad(x32, dy32, w_shape, 1, 1)
+    assert _kernels.LAUNCHES["conv_wgrad"] == before + int(kernel)
+    assert _worst_rel(got[None], want[None]) <= WGRAD_REL_TOL
+
+
+def test_conv_wgrad_kernel_at_vgg16_conv1_2_batch_200(cuda):
+    """VGG-16's conv1_2 (64 -> 64 at 224 px) at batch 200: 10,035,200
+    output pixels, the largest reduction of any cell, split over slices
+    that a second pass sums: within 1e-4 of the largest float64 entry,
+    and bitwise repeatable."""
+    from clsurvey_torch.ops import conv
+
+    x, dy, x32, dy32, w_shape = _vgg16_wgrad_inputs(
+        cuda, "features.conv_1", 200)
+    assert conv.takes_kernel(x32, dy32, w_shape)
+    plan = conv.wgrad_plan(
+        w_shape, (224, 224), 200, None, "vec", "vec",
+        torch.cuda.get_device_properties(cuda).multi_processor_count,
+        conv._resident)
+    assert plan.pixels == 10035200 and plan.slices > 1
+    want = conv.weight_grad_plain(x, dy, w_shape, 1, 1)
+    del x, dy
+    got = conv.weight_grad(x32, dy32, w_shape, 1, 1)
+    assert _worst_rel(got[None], want[None]) <= WGRAD_REL_TOL
+    assert torch.equal(got, conv.weight_grad(x32, dy32, w_shape, 1, 1))
+
+
 def test_conv_wgrad_kernel_counts_five_a_step_of_alexnet(cuda):
     """Every float32 conv weight gradient of AlexNet's train step goes
     through kernel C: five launches a step, the first conv (C_in 3) on the
@@ -445,6 +516,25 @@ def test_conv_wgrad_spans_on_the_card(cuda):
     spans.reset()
 
 
+def test_pool_spans_on_the_card(cuda):
+    """Inside a train step, one ``pool`` span a B1 and a B2 call, each
+    with the bytes the call moves (``ops/pool.py:call_bytes``) and the
+    card's time; outside one, none."""
+    from clsurvey_torch.utils import spans
+
+    x = torch.randn(8, 32, 32, 64, device=cuda, requires_grad=True)
+    spans.reset()
+    with _profiled():
+        pool.pool2x2(x).square().sum().backward()
+        with spans.span(spans.STEP, 8):
+            pool.pool2x2(x).square().sum().backward()
+        torch.cuda.synchronize()
+    recs = spans.records("pool")
+    assert [r.n for r in recs] == [pool.call_bytes(x.shape, 4)] * 2
+    assert all(r.device_ms > 0 and r.step == 1 for r in recs)
+    spans.reset()
+
+
 def _alexnet_epoch(cuda, steps=4, batch=16, px=64):
     """An epoch of AlexNet's train step on the card (64 px, dropout and
     flips on), its loss read back."""
@@ -494,8 +584,8 @@ def test_step_spans_on_the_card_add_no_device_operation(cuda, monkeypatch):
     ``launches_per_step``. Each ``train.step`` record holds the profiler's
     event of its range (to 0.1 ms; a handoff of the interpreter lock to
     autograd's thread between the two stamps widens a record), their ends
-    within 1 ms in the median, and every step and conv weight gradient has
-    its device time."""
+    within 1 ms in the median, and every step, conv weight gradient and
+    sampled step's conv forward and input gradient has its device time."""
     from clsurvey_torch.utils import spans
 
     epoch = _alexnet_epoch(cuda)
@@ -507,7 +597,11 @@ def test_step_spans_on_the_card_add_no_device_operation(cuda, monkeypatch):
     assert [r.step for r in steps] == [1, 2, 3, 4]
     assert sorted(r.step for r in wgrad) == [s for s in (1, 2, 3, 4)
                                              for _ in range(5)]
-    assert all(r.device_ms > 0 for r in steps + wgrad)
+    # the forwards and input gradients of the sampled step (one in 8)
+    fwd, dgrad = spans.records("conv.fwd"), spans.records("conv.dgrad")
+    assert [r.step for r in fwd] == [1] * 5
+    assert [r.step for r in dgrad] == [1] * 4
+    assert all(r.device_ms > 0 for r in steps + wgrad + fwd + dgrad)
     events = sorted(
         (ev.start_ns(), ev.start_ns() + ev.duration_ns())
         for ev in prof.profiler.kineto_results.events()

@@ -52,14 +52,16 @@ def test_profile_writes_trace(port_root):
     with open(traces[0]) as f:
         assert '"traceEvents"' in f.read()
     # the program's spans of the task, beside the trace: every train step
-    # numbered in turn, and the evals
+    # numbered in turn, the evals, and the model's pools (the convs' spans
+    # are the card's route's)
     with open(traces[0].replace(".pt.trace.json", ".spans.json")) as f:
         got = json.load(f)
     assert got["dropped"] == 0
     steps = [r for r in got["records"] if r["name"] == "train.step"]
     assert steps and [r["step"] for r in steps] == \
         list(range(1, len(steps) + 1))
-    assert {r["name"] for r in got["records"]} == {"train.step", "eval"}
+    assert {r["name"] for r in got["records"]} == {"train.step", "eval",
+                                                   "pool"}
     assert all(r["end_ns"] >= r["start_ns"] > 0 and r["n"] > 0
                for r in got["records"])
 
