@@ -24,8 +24,11 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line
    name), beside the plain version's, the library call's where one
    exists, the bound, and an empty kernel's time; kernel C (the float32
    conv weight gradient) at AlexNet's and small_VGG9's eleven convs at
-   batch 200 against its plain twin, bitwise repeatable, warm and cold
-   beside the twin and its FFMA bound;
+   batch 200 against its plain twin, and at VGG-16's twelve kernel-routed
+   convs against its other design, bitwise repeatable, warm and cold
+   beside the twin and its FFMA bound, and where the program takes the
+   warp-specialised design the first design timed in turns with it, at
+   batch 200 and per sample;
 3. cli: the timing_mode finetuning CLI on small_VGG9_cl_128_128, with the
    launch counters zeroed just before and read just after; every kernel
    must have launched, every pool launch on the vec route, and every task
@@ -543,6 +546,41 @@ def check_batches(gen, sizes) -> list:
     return sorted(sizes)
 
 
+def _vgg16_convs() -> dict:
+    """{conv name: (C_in, C_out, k, stride, padding, side)} of VGG-16's 13
+    convs at 224 px, from the benchmark's configuration."""
+    from clbench.reference import net
+    from clbench.spec import Spec
+
+    return {f"vgg16.{layer['name']}": (src[0], dst[0], 3, 1, 1, src[1])
+            for layer, src, dst in net.shapes(Spec().config("vgg16_224"))
+            if layer["op"] == "conv"}
+
+
+def _wgrad_on(route, x, dy, w_shape, st, p, samples=None):
+    """Kernel C on ``route``, chosen below ``conv.weight_grad_cuda``'s
+    entry: that route's plan for this card, one launch."""
+    from clsurvey_torch.ops import conv
+
+    x_nhwc, dy_nhwc = conv._nhwc(x, dy, w_shape)
+    n, _, oh, ow = dy.shape
+    plan = conv.wgrad_plan(w_shape, (oh, ow), n, samples, route,
+                           conv.wgrad_route(w_shape[0], dy_nhwc.data_ptr()),
+                           conv._sms(x.device), conv._resident)
+    out = conv._launch(plan, x_nhwc, dy_nhwc, w_shape, st, p)
+    return out if samples else out[0]
+
+
+def _designs_in_turns(first, ws, iters: int) -> dict:
+    """Kernel C's two designs timed in turns (ws, first, first, ws) at one
+    call shape: each one's smaller device ms."""
+    times = {"ws": [], "first": []}
+    for name in ("ws", "first", "first", "ws"):
+        times[name].append(time_ms(ws if name == "ws" else first,
+                                   iters=iters, warmup=2)[0])
+    return {f"{k}_ms": min(v) for k, v in times.items()}
+
+
 def check_conv_wgrad(gen) -> dict:
     """Kernel C (``csrc/conv_wgrad.cu``, the float32 conv weight gradient)
     at AlexNet's five and small_VGG9's six convs at batch 200
@@ -551,16 +589,25 @@ def check_conv_wgrad(gen) -> dict:
     cuBLAS GEMM) within twice ``CONV_REL_TOL`` of the twin's largest entry
     (the alexnet phase holds both within ``CONV_REL_TOL`` of float64), and
     two calls bit-equal. Timed warm and on a cold L2 beside the twin; the
-    bound is FFMA's, the GEMM's FLOPs at 67 TFLOP/s. AlexNet's rows are the
-    benchmark's step (``main``); small_VGG9's first conv keeps the twin
-    (``ops/conv.py``'s rule on C_in k k) and is timed through it alone."""
+    bound is FFMA's, the GEMM's FLOPs at 67 TFLOP/s. small_VGG9's first
+    conv keeps the twin (``ops/conv.py``'s rule on C_in k k) and is timed
+    through it alone. Then VGG-16's 12 kernel-routed convs at batch 200
+    beside the bound (91.1 ms summed), against the twin computed once,
+    untimed. AlexNet's and VGG-16's rows are the benchmark's steps
+    (``main``). Wherever the program takes the warp-specialised design,
+    the first design is held against the twin too, and timed in turns
+    with it: at these shapes and per sample (MAS's 16 samples of one
+    row), where the rule keeps the first design."""
     from clsurvey_torch.ops import conv
     from clsurvey_torch.utils.conv_precision import BATCH, SHAPES
 
     scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     flush = scratch.bitwise_not_
     rows, err = [], 0.0
-    for name, (cin, cout, k, st, p, hw) in SHAPES.items():
+    shapes = {**SHAPES, **{k: v for k, v in _vgg16_convs().items()
+                           if v[0] * v[2] ** 2 >= conv.WGRAD_MIN_COLUMNS}}
+    for name, (cin, cout, k, st, p, hw) in shapes.items():
+        vgg = name.startswith("vgg16")
         oh = (hw + 2 * p - k) // st + 1
         x = torch.relu(torch.randn(BATCH, cin, hw, hw, device="cuda",
                                    generator=gen)).contiguous(
@@ -569,39 +616,87 @@ def check_conv_wgrad(gen) -> dict:
                          generator=gen).contiguous(
             memory_format=torch.channels_last)
         w_shape = (cout, cin, k, k)
-        plain = functools.partial(conv.weight_grad_plain, x, dy, w_shape,
-                                  st, p)
+        plain = None if vgg else functools.partial(
+            conv.weight_grad_plain, x, dy, w_shape, st, p)
         route = None
         kernel = None
+        flops = 2.0 * BATCH * oh * oh * cout * cin * k * k
         if conv.takes_kernel(x, dy, w_shape):
-            route = conv.wgrad_route(cin, x.data_ptr())
+            x_route = conv.wgrad_route(cin, x.data_ptr())
+            route = conv.wgrad_design(x_route,
+                                      conv.wgrad_route(cout, dy.data_ptr()),
+                                      cout, BATCH * oh * oh)
             kernel = functools.partial(conv.weight_grad_cuda, x, dy,
                                        w_shape, st, p)
-            got, want = kernel(), plain()
+            first = functools.partial(_wgrad_on, x_route, x, dy, w_shape, st,
+                                      p)
+            got = kernel()
             if not torch.equal(got, kernel()):
                 raise AssertionError(f"kernel C at {name}: two calls differ")
-            gap = float((got - want).abs().max() / want.abs().max())
-            if not gap <= 2 * CONV_REL_TOL:
-                raise AssertionError(
-                    f"kernel C at {name}: {gap:.3g} of the plain twin's "
-                    f"largest entry off it (tolerance {2 * CONV_REL_TOL:g})")
-            err = max(err, gap)
-        flops = 2.0 * BATCH * oh * oh * cout * cin * k * k
+            want = conv.weight_grad_plain(x, dy, w_shape, st, p)
+            for design, out in (("program's", got), ("first", first())) \
+                    if route == "ws" else (("program's", got),):
+                gap = float((out - want).abs().max() / want.abs().max())
+                if not gap <= 2 * CONV_REL_TOL:
+                    raise AssertionError(
+                        f"kernel C's {design} design at {name}: {gap:.3g} "
+                        f"of the plain twin's largest entry off it "
+                        f"(tolerance {2 * CONV_REL_TOL:g})")
+                err = max(err, gap)
+            del got, want, out
         row = _timings(
             {"shape": [BATCH, cin, hw, hw], "conv": name, "kernel": k,
              "stride": st, "c_out": cout, "dtype": str(torch.float32),
-             "route": route or "plain", "main": name.startswith("alexnet"),
+             "route": route or "plain",
+             "main": name.startswith(("alexnet", "vgg16")),
              "bound_ms": flops / PEAK_FLOPS[torch.float32] * 1e3},
             kernel=kernel, plain=plain, library=None)
         row["cold_ms"] = kernel and cold_ms(kernel, flush)
+        if route == "ws":
+            row.update(_designs_in_turns(first, kernel,
+                                         5 if flops > 2e11 else 20))
+            # MAS's per-sample form at this shape: 16 samples of one row
+            ps = [t[:16] for t in (x, dy)]
+            per = {f"per_sample_{k}": v for k, v in _designs_in_turns(
+                functools.partial(_wgrad_on, "vec", *ps, w_shape, st, p, 16),
+                functools.partial(_wgrad_on, "ws", *ps, w_shape, st, p, 16),
+                20).items()}
+            row.update(per, per_sample_route=conv.wgrad_design(
+                "vec", "vec", cout, oh * oh))
         rows.append(row)
+        share = lambda key: f"{100 * row['bound_ms'] / row[key]:.1f}%"
         log(f"kernel C [{row['route']}] {name}: "
             + ("plain twin only (C_in k k below "
                f"{conv.WGRAD_MIN_COLUMNS})" if kernel is None else
                f"{row['kernel_ms']:.4f} ms warm, {row['cold_ms']:.4f} ms "
-               f"cold ({100 * row['bound_ms'] / row['kernel_ms']:.0f}% of "
-               f"the FFMA bound {row['bound_ms']:.4f} warm)")
-            + f"; plain twin {row['plain_ms']:.4f} ms")
+               f"cold ({share('kernel_ms')} of the FFMA bound "
+               f"{row['bound_ms']:.4f} warm)")
+            + ("" if plain is None else
+               f"; plain twin {row['plain_ms']:.4f} ms")
+            + ("" if route != "ws" else
+               f"; in turns: warp-specialised {row['ws_ms']:.4f} ms "
+               f"({share('ws_ms')}), first design {row['first_ms']:.4f} ms "
+               f"({share('first_ms')}); per sample (16 x 1) "
+               f"{row['per_sample_ws_ms']:.4f} / "
+               f"{row['per_sample_first_ms']:.4f} ms, the program's route "
+               f"{row['per_sample_route']}"))
+        del x, dy
+
+    def share(part, key):  # of the FFMA bound, summed
+        return 100 * sum(r["bound_ms"] for r in part) / sum(
+            r[key] for r in part)
+
+    for model in ("alexnet", "small_VGG9", "vgg16"):
+        part = [r for r in rows if r["conv"].startswith(model)
+                and r["route"] != "plain"]
+        turns = [r for r in part if r["route"] == "ws"]
+        log(f"kernel C at {model}'s {len(part)} kernel-routed convs: "
+            f"{sum(r['kernel_ms'] for r in part):.4f} ms, "
+            f"{share(part, 'kernel_ms'):.1f}% of the FFMA bound "
+            f"{sum(r['bound_ms'] for r in part):.4f} ms"
+            + (f"; its {len(turns)} warp-specialised convs in turns: "
+               f"{share(turns, 'ws_ms'):.1f}%, the first design "
+               f"{share(turns, 'first_ms'):.1f}%" if turns else ""))
     del scratch
     return {"err": err, "rows": rows}
 
@@ -3743,7 +3838,8 @@ def run(phases: list) -> int:
                     "conv_wgrad": None}
         # A in float32; B1 and B2 in float32 and in bfloat16, the dtype of
         # the protocol's headline throughput; kernel C in float32, the only
-        # dtype it runs in (its ms: AlexNet's five convs, a train step)
+        # dtype it runs in (its ms: AlexNet's five convs and VGG-16's
+        # twelve, a train step of each, summed)
         dtypes = {"normalize_flip": (torch.float32,),
                   "pool_fwd": (torch.float32, torch.bfloat16),
                   "pool_bwd": (torch.float32, torch.bfloat16),

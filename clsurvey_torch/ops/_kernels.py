@@ -11,9 +11,10 @@ rebuilt and an unchanged one is reused. Nothing here runs at import time.
 ``ops/preprocess.py``, ``ops/pool.py`` and ``ops/conv.py`` (``conv_wgrad``:
 kernel C, one a float32 conv weight gradient on the card, its GEMM and its
 sum of the slices), ``ROUTES`` the pool pair's and kernel C's launches per
-route (``pool_fwd_vec``, ``pool_fwd_scalar``, ..., ``conv_wgrad_vec``,
-``conv_wgrad_scalar``), and ``BATCHES`` collects the batch sizes they were
-launched at; :func:`reset_launches` clears all three.
+route (``pool_fwd_vec``, ``pool_fwd_scalar``, ..., ``conv_wgrad_ws``, the
+warp-specialised design, ``conv_wgrad_vec``, ``conv_wgrad_scalar``), and
+``BATCHES`` collects the batch sizes they were launched at;
+:func:`reset_launches` clears all three.
 """
 
 from __future__ import annotations
@@ -56,15 +57,19 @@ SIGNATURES = {
         # padding, groups, slices, chunk, tile rows, and 1 where x and
         # where dy are copied 16 bytes at a time
         "clsurvey_conv_wgrad": (_P, _P, _P, _P) + (_I,) * 16 + (_P,),
-        # resident blocks an SM (tile rows, x's and dy's copies)
+        # the same by the warp-specialised design, both copied 16 bytes at
+        # a time
+        "clsurvey_conv_wgrad_ws": (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
+        # resident blocks an SM (tile rows, x's and dy's copies; tile rows)
         "clsurvey_conv_wgrad_occupancy": (_I, _I, _I),
+        "clsurvey_conv_wgrad_ws_occupancy": (_I,),
     },
 }
 
 LAUNCHES = {"normalize_flip": 0, "pool_fwd": 0, "pool_bwd": 0,
             "conv_wgrad": 0}
 ROUTES = {f"{k}_{r}": 0 for k in ("pool_fwd", "pool_bwd", "conv_wgrad")
-          for r in ("vec", "scalar")}
+          for r in ("vec", "scalar")} | {"conv_wgrad_ws": 0}
 BATCHES: dict[str, set] = {name: set() for name in LAUNCHES}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -227,26 +227,48 @@ def _card_shapes():
     return CARD_SHAPES
 
 
+def _resident(bm, route, dy_route):
+    """Blocks an SM: the warp-specialised design's one, the first
+    design's as the occupancy API reads them on the H100."""
+    return 1 if route == "ws" else (4 if bm == 64 else 2)
+
+
+@pytest.mark.parametrize("design", ["program", "first"])
 @pytest.mark.parametrize("rows, samples", [(200, None), (37, None),
                                            (16, 16), (6, 3), (1, None)],
                          ids=["200", "37", "16x1", "3x2", "1"])
 @pytest.mark.parametrize("sms", [132, 7])
 @pytest.mark.parametrize("name", list(_card_shapes()))
-def test_wgrad_plan_slices_cover_every_pixel_once(name, rows, samples, sms):
-    """The split over output pixels at every card shape: each group's (one
-    sample's) pixels are cut into whole stages, every pixel of every row in
-    exactly one slice, no slice empty or across a sample's edge; the tile
-    rows fill C_out where they can; the workspace holds every slice's
-    whole tiles, and is left out where one slice of unpadded tiles is
-    written to the gradient itself."""
+def test_wgrad_plan_slices_cover_every_pixel_once(name, rows, samples, sms,
+                                                  design):
+    """The split over output pixels at every card shape, on the program's
+    design (:func:`tconv.wgrad_design`, the warp-specialised one where
+    C_out is a multiple of 128 and a group has the pixels) and on the
+    first: each group's (one sample's) pixels are cut into whole stages of
+    the design's ring, every pixel of every row in exactly one slice, no
+    slice empty or across a sample's edge; the tile is the design's (128 x
+    192 or 256 x 96, 16-pixel stages; 64 or 128 x 128, 16 or 8 pixels) and
+    fills C_out where it can; the workspace holds every slice's whole
+    tiles, within ``WGRAD_WS_MAX_FLOATS`` on the warp-specialised design,
+    and is left out where one slice of unpadded tiles is written to the
+    gradient itself."""
     cin, cout, k, st, p, hw = _card_shapes()[name]
     oh = (hw + 2 * p - k) // st + 1
     w_shape = (cout, cin, k, k)
-    plan = tconv.wgrad_plan(w_shape, (oh, oh), rows, samples, "vec", "vec",
-                            sms, lambda bm, *routes: 4 if bm == 64 else 2)
     v = samples or 1
-    assert plan.groups == v and plan.pixels == rows // v * oh * oh
-    assert plan.chunk % tconv.WGRAD_BK[plan.bm] == 0 and plan.slices >= 1
+    route = "vec" if design == "first" else tconv.wgrad_design(
+        "vec", "vec", cout, rows // v * oh * oh)
+    plan = tconv.wgrad_plan(w_shape, (oh, oh), rows, samples, route, "vec",
+                            sms, _resident)
+    assert plan.route == route and plan.groups == v
+    assert plan.pixels == rows // v * oh * oh
+    if route == "ws":
+        assert (plan.bm, plan.bn, plan.bk) == (
+            (256, 96, 16) if cout % 256 == 0 else (128, 192, 16))
+    else:
+        assert (plan.bm, plan.bn, plan.bk) == (
+            (128, 128, 8) if cout % 128 == 0 else (64, 128, 16))
+    assert plan.chunk % plan.bk == 0 and plan.slices >= 1
     covered = np.zeros(rows * oh * oh, dtype=int)
     for g in range(v):  # as the kernel cuts them: group g from g * pixels
         first, last = g * plan.pixels, (g + 1) * plan.pixels
@@ -256,12 +278,59 @@ def test_wgrad_plan_slices_cover_every_pixel_once(name, rows, samples, sms):
             assert first <= start < end <= last
             covered[start:end] += 1
     assert (covered == 1).all()
-    assert plan.bm == (128 if cout % 128 == 0 else 64)
-    rows_pad, cols_pad = -(-cout // plan.bm) * plan.bm, -(-cin * k * k
-                                                          // 128) * 128
+    rows_pad = -(-cout // plan.bm) * plan.bm
+    cols_pad = -(-cin * k * k // plan.bn) * plan.bn
     direct = plan.slices == 1 and (rows_pad, cols_pad) == (cout, cin * k * k)
     assert plan.ws_floats == (0 if direct else
                               v * plan.slices * rows_pad * cols_pad)
+    if route == "ws":
+        assert plan.ws_floats <= max(tconv.WGRAD_WS_MAX_FLOATS,
+                                     v * rows_pad * cols_pad)
+
+
+def _route_rule_cases():
+    """(call, the program's route) at batch 200 and per sample (MAS's 16
+    samples of one row): AlexNet's and small_VGG9's card shapes at 224
+    and 64 px, VGG-16's 13 convs at 224 px (C_in, C_out, side)."""
+    from clsurvey_torch.utils.conv_precision import SHAPES as CARD
+
+    vgg16 = [(3, 64, 224), (64, 64, 224), (64, 128, 112), (128, 128, 112),
+             (128, 256, 56), (256, 256, 56), (256, 256, 56), (256, 512, 28),
+             (512, 512, 28), (512, 512, 28), (512, 512, 14), (512, 512, 14),
+             (512, 512, 14)]
+    shapes = {name: (cin, cout, (hw + 2 * p - k) // st + 1)
+              for name, (cin, cout, k, st, p, hw) in CARD.items()}
+    shapes |= {f"vgg16.conv_{i}": s for i, s in enumerate(vgg16)}
+    # the first design keeps C_in 3 (scalar copies of x), C_out 64 and 192
+    # and groups of fewer than WGRAD_WS_MIN_PIXELS
+    ws = {"alexnet.conv_2", "alexnet.conv_3", "alexnet.conv_4",
+          "small_VGG9.conv_2", "small_VGG9.conv_3", "small_VGG9.conv_4",
+          "small_VGG9.conv_5"} | {f"vgg16.conv_{i}" for i in range(2, 13)}
+    per_sample_ws = {"small_VGG9.conv_2", "small_VGG9.conv_3"} | {
+        f"vgg16.conv_{i}" for i in range(2, 10)}
+    cases = []
+    for name, (cin, cout, side) in shapes.items():
+        copies = "scalar" if cin % 4 else "vec"
+        cases.append(pytest.param(cin, cout, 200 * side * side,
+                                  "ws" if name in ws else copies,
+                                  id=f"{name}-200"))
+        cases.append(pytest.param(cin, cout, side * side,
+                                  "ws" if name in per_sample_ws else copies,
+                                  id=f"{name}-16x1"))
+    return cases
+
+
+@pytest.mark.parametrize("cin, cout, pixels, route", _route_rule_cases())
+def test_wgrad_design_rule(cin, cout, pixels, route):
+    """Which calls take the warp-specialised design: both tensors copied
+    16 bytes at a time, C_out a multiple of 128 and at least
+    ``WGRAD_WS_MIN_PIXELS`` output pixels a group; every conv of the three
+    cells' weight gradients at batch 200 but AlexNet's first two and
+    VGG-16's first two, and per sample only groups of 784 pixels and
+    more."""
+    assert tconv.wgrad_design(tconv.wgrad_route(cin, 0),
+                              tconv.wgrad_route(cout, 0), cout,
+                              pixels) == route
 
 
 @pytest.mark.parametrize("channels, ptr, route", [

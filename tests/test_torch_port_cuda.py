@@ -24,12 +24,16 @@ need not have; nothing here uses it.)
   against float64 on the card, at AlexNet's 5x5 conv, batched and per
   sample under ``vmap(grad)``;
 - kernel C (``csrc/conv_wgrad.cu``) at every conv shape of
-  ``utils/conv_precision``: against float64 and its plain twin at 200 and
-  37 rows, per sample (16 of one row, 3 of two), bitwise repeatable, each
-  call counted on its route, five calls a step of AlexNet; at VGG-16's
-  13 convs at 224 px (``clbench/configs/vgg16_224.json``, batch 16; the
-  first keeps the twin) and at its conv1_2 at batch 200, 10,035,200 output
-  pixels split into slices, against float64;
+  ``utils/conv_precision``, on the program's design and, where C_out is a
+  multiple of 128, on the other too (warp-specialised and first): against
+  float64 and its plain twin at 200 and 37 rows, per sample (16 of one
+  row, 3 of two), bitwise repeatable, each call counted on its route;
+  five calls a step of AlexNet at 224 px (scalar, vec, three
+  warp-specialised); at VGG-16's 13 convs at 224 px
+  (``clbench/configs/vgg16_224.json``, batch 16; the first keeps the twin)
+  on both designs where both run, a VGG-16 train step's 12 calls on their
+  routes (11 warp-specialised), and its conv1_2 at batch 200, 10,035,200
+  output pixels split into slices, against float64;
 - ``parallel/mesh.py:global_grads``: its gradients the caller's alone;
 - the program's spans (``utils/spans.py``): one ``conv.wgrad`` a conv a
   backward, plain and under ``vmap(grad)``, with device time; one ``pool``
@@ -38,6 +42,8 @@ need not have; nothing here uses it.)
   without them, its ``train.step`` records hold the profiler's events, and
   the sampled step has a ``conv.fwd`` a conv and a ``conv.dgrad`` a conv
   but the first."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -157,7 +163,8 @@ def test_pool_kernels_match_plain(cuda, dtype, shape, offset):
     launched = {k: _kernels.ROUTES[k] - before[k] for k in before}
     assert launched == {f"pool_{k}_{r}": int(r == route)
                         for k in ("fwd", "bwd") for r in ("vec", "scalar")
-                        } | {"conv_wgrad_vec": 0, "conv_wgrad_scalar": 0}
+                        } | {"conv_wgrad_vec": 0, "conv_wgrad_scalar": 0,
+                             "conv_wgrad_ws": 0}
 
 
 def test_pool_autograd_matches_max_pool2d(cuda):
@@ -289,30 +296,81 @@ def _worst_rel(got, want) -> float:
     return float((err / want.flatten(1).abs().amax(1)).max())
 
 
-def _wgrad_names():
+def _designs(cin, cout):
+    """The designs kernel C can run a call on (``ops/conv.py``): "program",
+    the program's own route, and "other", the other design, where C_out and
+    the channels allow the warp-specialised one. Decided from the shapes
+    alone (static data, the same in every worker)."""
+    both = cin % 4 == 0 and cout % 128 == 0
+    return ["program", "other"] if both else ["program"]
+
+
+def _route(design, cin, cout, x32, dy32, pixels):
+    """(route to force, route counted) of ``design`` for this call: the
+    program's forces none."""
+    from clsurvey_torch.ops import conv
+
+    copies = (conv.wgrad_route(cin, x32.data_ptr()),
+              conv.wgrad_route(cout, dy32.data_ptr()))
+    program = conv.wgrad_design(*copies, cout, pixels)
+    if design == "program":
+        return None, program
+    other = copies[0] if program == "ws" else "ws"
+    return other, other
+
+
+def _forced(x32, dy32, w_shape, st, p, samples, route):
+    """Kernel C on ``route``, chosen below :func:`conv.weight_grad_cuda`'s
+    entry: that route's plan for this card, one launch."""
+    from clsurvey_torch.ops import conv
+
+    x_nhwc, dy_nhwc = conv._nhwc(x32, dy32, w_shape)
+    n, _, oh, ow = dy32.shape
+    plan = conv.wgrad_plan(w_shape, (oh, ow), n, samples, route,
+                           conv.wgrad_route(w_shape[0], dy_nhwc.data_ptr()),
+                           conv._sms(x32.device), conv._resident)
+    out = conv._launch(plan, x_nhwc, dy_nhwc, w_shape, st, p)
+    return out if samples else out[0]
+
+
+def _by_design(shapes):
+    """(name, design) for each {name: (C_in, C_out, ...)} and each design
+    its shape allows."""
+    return [pytest.param(name, design, id=f"{name}-{design}")
+            for name, (cin, cout, *_) in shapes.items()
+            for design in _designs(cin, cout)]
+
+
+def _card_shapes():
     from clsurvey_torch.utils.conv_precision import SHAPES
 
-    return list(SHAPES)
+    return SHAPES
 
 
 @pytest.mark.parametrize("rows", [200, 37])
-@pytest.mark.parametrize("name", _wgrad_names())
-def test_conv_wgrad_kernel_matches_float64_and_plain(cuda, name, rows):
+@pytest.mark.parametrize("name, design", _by_design(_card_shapes()))
+def test_conv_wgrad_kernel_matches_float64_and_plain(cuda, name, design,
+                                                     rows):
     """Kernel C at every card conv shape, at batch 200 and at a ragged 37
-    rows (pixels that fill no tile): within 1e-4 of the largest float64
-    entry, as the plain twin is, so the two within 2e-4 of each other;
-    one launch on the route :func:`conv.wgrad_route` names for the input,
-    none where :func:`conv.takes_kernel`'s rule keeps the plain twin
-    (small_VGG9's first conv: 27 patch columns)."""
+    rows (pixels that fill no tile), on each design the shape allows (the
+    program's and, where C_out is a multiple of 128, the other): within
+    1e-4 of the largest float64 entry, as the plain twin is, so the two
+    within 2e-4 of each other; one launch on the route
+    :func:`conv.wgrad_design` names for the program (or the other design
+    forced), none where :func:`conv.takes_kernel`'s rule keeps the plain
+    twin (small_VGG9's first conv: 27 patch columns)."""
     from clsurvey_torch.ops import conv
 
     x, dy, x32, dy32, w_shape, st, p = _wgrad_inputs(cuda, name, rows)
     want = conv.weight_grad_plain(x, dy, w_shape, st, p)
-    route = conv.wgrad_route(w_shape[1], x32.data_ptr())
+    cout, cin = w_shape[:2]
+    force, route = _route(design, cin, cout, x32, dy32,
+                          rows * dy.shape[2] * dy.shape[3])
     kernel = conv.takes_kernel(x32, dy32, w_shape)
     assert kernel == (name != "small_VGG9.conv_0")
     before = dict(_kernels.ROUTES)
-    got = conv.weight_grad(x32, dy32, w_shape, st, p)
+    got = conv.weight_grad(x32, dy32, w_shape, st, p) if force is None \
+        else _forced(x32, dy32, w_shape, st, p, None, force)
     launched = {k: _kernels.ROUTES[k] - before[k] for k in before}
     assert {k: n for k, n in launched.items() if n} == (
         {f"conv_wgrad_{route}": 1} if kernel else {})
@@ -328,21 +386,29 @@ def test_conv_wgrad_kernel_matches_float64_and_plain(cuda, name, rows):
 
 @pytest.mark.parametrize("samples, per", [(16, 1), (3, 2)],
                          ids=["16x1", "3x2"])
-@pytest.mark.parametrize("name", _wgrad_names())
-def test_conv_wgrad_kernel_per_sample(cuda, name, samples, per):
+@pytest.mark.parametrize("name, design", _by_design(_card_shapes()))
+def test_conv_wgrad_kernel_per_sample(cuda, name, design, samples, per):
     """The per-sample form (MAS's ``vmap(grad)`` rule): V samples of
-    ``per`` rows one after another, each sample's gradient within 1e-4 of
-    its own largest float64 entry, and equal to kernel C on that sample's
-    rows alone to float32 rounding (the slices differ)."""
+    ``per`` rows one after another, on each design the shape allows, each
+    sample's gradient within 1e-4 of its own largest float64 entry, and
+    equal to kernel C on that sample's rows alone to float32 rounding (the
+    slices differ)."""
     from clsurvey_torch.ops import conv
 
     x, dy, x32, dy32, w_shape, st, p = _wgrad_inputs(cuda, name,
                                                      samples * per, seed=1)
+    cout, cin = w_shape[:2]
+    force, route = _route(design, cin, cout, x32, dy32,
+                          per * dy.shape[2] * dy.shape[3])
     want = conv.weight_grad_plain(x, dy, w_shape, st, p, samples=samples)
-    before = _kernels.LAUNCHES["conv_wgrad"]
-    got = conv.weight_grad(x32, dy32, w_shape, st, p, samples=samples)
-    assert _kernels.LAUNCHES["conv_wgrad"] == before + int(
-        conv.takes_kernel(x32, dy32, w_shape))
+    kernel = conv.takes_kernel(x32, dy32, w_shape)
+    before = dict(_kernels.ROUTES)
+    got = conv.weight_grad(x32, dy32, w_shape, st, p, samples=samples) \
+        if force is None else _forced(x32, dy32, w_shape, st, p, samples,
+                                      force)
+    launched = {k: _kernels.ROUTES[k] - before[k] for k in before}
+    assert {k: n for k, n in launched.items() if n} == (
+        {f"conv_wgrad_{route}": 1} if kernel else {})
     assert got.shape == (samples, *w_shape)
     assert _worst_rel(got, want) <= WGRAD_REL_TOL
     for v in (0, samples - 1):
@@ -352,18 +418,33 @@ def test_conv_wgrad_kernel_per_sample(cuda, name, samples, per):
             2 * WGRAD_REL_TOL * float(want[v].abs().max())
 
 
-@pytest.mark.parametrize("name, rows, samples", [
-    ("alexnet.conv_0", 200, None), ("alexnet.conv_1", 200, None),
-    ("alexnet.conv_3", 37, None), ("small_VGG9.conv_1", 16, 16)])
-def test_conv_wgrad_kernel_is_bitwise_repeatable(cuda, name, rows, samples):
-    """Two calls on the same inputs give the same bits: the slices'
-    partial sums are added in a fixed order, with no atomics."""
+@pytest.mark.parametrize("name, rows, samples, design", [
+    ("alexnet.conv_0", 200, None, "program"),
+    ("alexnet.conv_1", 200, None, "program"),
+    ("alexnet.conv_3", 37, None, "program"),
+    ("alexnet.conv_3", 37, None, "other"),
+    ("small_VGG9.conv_1", 16, 16, "program"),
+    ("small_VGG9.conv_3", 200, None, "program"),
+    ("small_VGG9.conv_3", 200, None, "other"),
+    ("small_VGG9.conv_3", 16, 16, "program"),
+    ("small_VGG9.conv_3", 16, 16, "other")])
+def test_conv_wgrad_kernel_is_bitwise_repeatable(cuda, name, rows, samples,
+                                                 design):
+    """Two calls on the same inputs give the same bits, on the program's
+    design and on the other where the shape has one: the slices' partial
+    sums, and the warp-specialised design's two sets of warps, are added
+    in a fixed order, with no atomics."""
     from clsurvey_torch.ops import conv
 
-    _, _, x32, dy32, w_shape, st, p = _wgrad_inputs(cuda, name, rows)
-    first = conv.weight_grad(x32, dy32, w_shape, st, p, samples=samples)
-    assert torch.equal(first, conv.weight_grad(x32, dy32, w_shape, st, p,
-                                               samples=samples))
+    _, dy, x32, dy32, w_shape, st, p = _wgrad_inputs(cuda, name, rows)
+    cout, cin = w_shape[:2]
+    force, _ = _route(design, cin, cout, x32, dy32,
+                      rows // (samples or 1) * dy.shape[2] * dy.shape[3])
+    call = functools.partial(conv.weight_grad_cuda, x32, dy32, w_shape, st,
+                             p, samples) if force is None else \
+        functools.partial(_forced, x32, dy32, w_shape, st, p, samples, force)
+    first = call()
+    assert torch.equal(first, call())
 
 
 def _vgg16_convs() -> dict:
@@ -389,22 +470,39 @@ def _vgg16_wgrad_inputs(cuda, name: str, n: int):
     return x, dy, x32, dy32, (cout, cin, 3, 3)
 
 
-@pytest.mark.parametrize("name", list(_vgg16_convs()))
-def test_conv_wgrad_kernel_at_vgg16_shapes(cuda, name):
-    """Kernel C at each of VGG-16's convs at 224 px, batch 16: within 1e-4
-    of the largest float64 entry, one launch where
-    :func:`conv.takes_kernel` sends the call to it (12 of the 13; the
-    first conv's 27 patch columns keep the twin), none where not."""
+def _vgg16_by_design():
+    convs = _vgg16_convs()
+    return [pytest.param(name, design, id=f"{name}-{design}")
+            for name, (cin, cout, _) in convs.items()
+            for design in _designs(cin, cout)]
+
+
+@pytest.mark.parametrize("name, design", _vgg16_by_design())
+def test_conv_wgrad_kernel_at_vgg16_shapes(cuda, name, design):
+    """Kernel C at each of VGG-16's convs at 224 px, batch 16, on each
+    design the shape allows: within 1e-4 of the largest float64 entry, one
+    launch where :func:`conv.takes_kernel` sends the call to it (12 of the
+    13; the first conv's 27 patch columns keep the twin), none where not,
+    on the warp-specialised route at the 11 whose C_out is a multiple of
+    128 and the first design's at conv1_2 (C_out 64)."""
     from clsurvey_torch.ops import conv
 
     x, dy, x32, dy32, w_shape = _vgg16_wgrad_inputs(cuda, name, 16)
+    cout, cin = w_shape[:2]
     kernel = conv.takes_kernel(x32, dy32, w_shape)
     assert kernel == (name != "features.conv_0")
+    force, route = _route(design, cin, cout, x32, dy32,
+                          16 * dy.shape[2] * dy.shape[3])
+    if design == "program" and kernel:
+        assert route == ("vec" if cout == 64 else "ws")
     want = conv.weight_grad_plain(x, dy, w_shape, 1, 1)
     del x, dy
-    before = _kernels.LAUNCHES["conv_wgrad"]
-    got = conv.weight_grad(x32, dy32, w_shape, 1, 1)
-    assert _kernels.LAUNCHES["conv_wgrad"] == before + int(kernel)
+    before = dict(_kernels.ROUTES)
+    got = conv.weight_grad(x32, dy32, w_shape, 1, 1) if force is None \
+        else _forced(x32, dy32, w_shape, 1, 1, None, force)
+    launched = {k: _kernels.ROUTES[k] - before[k] for k in before}
+    assert {k: n for k, n in launched.items() if n} == (
+        {f"conv_wgrad_{route}": 1} if kernel else {})
     assert _worst_rel(got[None], want[None]) <= WGRAD_REL_TOL
 
 
@@ -418,6 +516,7 @@ def test_conv_wgrad_kernel_at_vgg16_conv1_2_batch_200(cuda):
     x, dy, x32, dy32, w_shape = _vgg16_wgrad_inputs(
         cuda, "features.conv_1", 200)
     assert conv.takes_kernel(x32, dy32, w_shape)
+    assert conv.wgrad_design("vec", "vec", 64, 10035200) == "vec"
     plan = conv.wgrad_plan(
         w_shape, (224, 224), 200, None, "vec", "vec",
         torch.cuda.get_device_properties(cuda).multi_processor_count,
@@ -431,15 +530,33 @@ def test_conv_wgrad_kernel_at_vgg16_conv1_2_batch_200(cuda):
 
 
 def test_conv_wgrad_kernel_counts_five_a_step_of_alexnet(cuda):
-    """Every float32 conv weight gradient of AlexNet's train step goes
-    through kernel C: five launches a step, the first conv (C_in 3) on the
-    scalar route and the other four on the vec route."""
-    epoch = _alexnet_epoch(cuda)  # 4 steps
+    """Every float32 conv weight gradient of AlexNet's train step at 224
+    px goes through kernel C: five launches a step, the first conv (C_in
+    3) on the scalar route, the second (C_out 192) on the first design's
+    vec route and the other three (13 x 13 pixels a row) on the
+    warp-specialised route."""
+    epoch = _epoch(cuda, px=224)  # 4 steps
     _kernels.reset_launches()
     epoch()
     assert _kernels.LAUNCHES["conv_wgrad"] == 20
     assert (_kernels.ROUTES["conv_wgrad_scalar"],
-            _kernels.ROUTES["conv_wgrad_vec"]) == (4, 16)
+            _kernels.ROUTES["conv_wgrad_vec"],
+            _kernels.ROUTES["conv_wgrad_ws"]) == (4, 4, 12)
+
+
+def test_vgg16_step_sends_its_convs_to_the_warp_specialised_route(cuda):
+    """A VGG-16 train step at 224 px (batch 8): its 12 kernel-routed conv
+    weight gradients are 12 launches of kernel C, the 11 whose C_out is a
+    multiple of 128 on the warp-specialised route, conv1_2 (C_out 64) on
+    the first design's vec route; the first conv keeps the plain twin."""
+    epoch = _epoch(cuda, "16normal_DROP_cl_4096_4096", steps=1, batch=8,
+                   px=224)
+    _kernels.reset_launches()
+    epoch()
+    assert _kernels.LAUNCHES["conv_wgrad"] == 12
+    assert (_kernels.ROUTES["conv_wgrad_scalar"],
+            _kernels.ROUTES["conv_wgrad_vec"],
+            _kernels.ROUTES["conv_wgrad_ws"]) == (0, 1, 11)
 
 
 def test_gradients_are_the_callers_alone_on_the_card(cuda):
@@ -535,13 +652,13 @@ def test_pool_spans_on_the_card(cuda):
     spans.reset()
 
 
-def _alexnet_epoch(cuda, steps=4, batch=16, px=64):
-    """An epoch of AlexNet's train step on the card (64 px, dropout and
-    flips on), its loss read back."""
+def _epoch(cuda, model="alexnet", steps=4, batch=16, px=64):
+    """An epoch of ``model``'s train step on the card (AlexNet at 64 px by
+    default; dropout and flips on), its loss read back."""
     from clsurvey_torch.engine import train as ttrain
     from clsurvey_torch.methods.base import UpdateRule
 
-    spec = treg.parse_model_name("", "alexnet", (px, px))
+    spec = treg.parse_model_name("", model, (px, px))
     ctx = ttrain.make_context(spec, task=0, n_tasks=1, class_counts=[5],
                               mean=MEAN, std=STD, update_rule=UpdateRule(),
                               device=cuda, augment=True)
@@ -588,7 +705,7 @@ def test_step_spans_on_the_card_add_no_device_operation(cuda, monkeypatch):
     sampled step's conv forward and input gradient has its device time."""
     from clsurvey_torch.utils import spans
 
-    epoch = _alexnet_epoch(cuda)
+    epoch = _epoch(cuda)
     epoch()  # cuDNN's algorithm search, outside the traces
     spans.reset()
     with_spans, prof = _traced(epoch)
